@@ -1,15 +1,16 @@
 // Native host-side quantize/pack kernels for checkpoint conversion.
 //
-// TPU-native counterpart of the reference's host pack pipeline
+// Counterpart of the reference's host pack pipeline
 // (mxmoe/kernels/src/include/quantize.cuh:289-475: compose_perm_indices /
-// permute_weight / pack_weightonly / pack_wxax). On TPU there is no
-// ldmatrix layout to permute for, so packing is (a) RTN integer codes and
+// permute_weight / pack_weightonly / pack_wxax). The Triton kernel and XLA
+// pick their own tile layouts, so there is no ldmatrix layout to permute
+// for, and packing is (a) RTN integer codes and
 // (b) nibble-packing for 4-bit storage — but converting a multi-GB MoE
 // checkpoint one expert at a time in Python is loader-bound, so the hot
 // loops live here, threaded across output channels.
 //
-// Build: python -m mxmoe_tpu.native.build   (g++ -O3 -shared -fPIC)
-// ABI: plain C, consumed via ctypes (mxmoe_tpu/native/__init__.py).
+// Build: python -m mxmoe.native.build   (g++ -O3 -shared -fPIC)
+// ABI: plain C, consumed via ctypes (mxmoe/native/__init__.py).
 
 #include <algorithm>
 #include <atomic>

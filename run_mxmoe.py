@@ -3,8 +3,8 @@
 Per layer: gate trace -> workload JSON -> scheme-bucketed kernel bench ->
 CSV. The reference shells out to gen_workload, regenerates CUDA sources,
 rebuilds with CMake/Ninja, and runs a C++ binary (``run_mxmoe_gg.py:
-69-138``); on TPU the "codegen + build" step is the Pallas trace/compile
-inside one process, so this is a thin driver over the same artifact flow.
+69-138``); here the "codegen + build" step is the Pallas/XLA trace and
+compile inside one process, so this is a thin driver over the same artifact flow.
 
 Examples:
   python run_mxmoe.py --model qwen2_moe --bs 8192 --layer 10 \
@@ -19,7 +19,7 @@ import argparse
 import json
 import os
 
-from mxmoe_tpu.utils.logging import setup_logger
+from mxmoe.utils.logging import setup_logger
 
 
 def main():
@@ -37,16 +37,16 @@ def main():
 
     log = setup_logger("run_mxmoe", log_dir="log", tag="run_mxmoe")
 
-    from mxmoe_tpu.bench.workload_gen import generate_workload_from_gate_trace
-    from mxmoe_tpu.bench.harness import run_bench, run_check
-    from mxmoe_tpu.quant.schemes import QModelConfig
+    from mxmoe.bench.workload_gen import generate_workload_from_gate_trace
+    from mxmoe.bench.harness import run_bench, run_check
+    from mxmoe.quant.schemes import QModelConfig
 
     if args.trace:
         with open(args.trace) as f:
             trace = json.load(f)
     else:
         # canonical recorded distribution (bench/workloads.py fixture)
-        from mxmoe_tpu.bench.workloads import QWEN2_MOE_L10_BS8192_ROUTED_M
+        from mxmoe.bench.workloads import QWEN2_MOE_L10_BS8192_ROUTED_M
 
         freq = QWEN2_MOE_L10_BS8192_ROUTED_M
         trace = {
@@ -69,9 +69,9 @@ def main():
         )
         log.info(f"workload -> {wl_path}")
         if args.check:
-            import jax
+            from mxmoe.utils.device import interpret_kernels
 
-            ok = run_check(wl, interpret=jax.default_backend() == "cpu")
+            ok = run_check(wl, interpret=interpret_kernels())
             log.info(f"layer {layer} check: {'PASS' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(1)
@@ -81,4 +81,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from mxmoe.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

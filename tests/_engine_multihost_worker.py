@@ -21,7 +21,7 @@ jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mxmoe_tpu.parallel.multihost import initialize  # noqa: E402
+from mxmoe.parallel.multihost import initialize  # noqa: E402
 
 initialize(coordinator_address=f"localhost:{port}", num_processes=nproc,
            process_id=pid)
@@ -30,13 +30,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from mxmoe_tpu.models import configs, model  # noqa: E402
-from mxmoe_tpu.models.layers import MoEImpl  # noqa: E402
-from mxmoe_tpu.parallel.ep import EPConfig  # noqa: E402
-from mxmoe_tpu.quant import qparams  # noqa: E402
-from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,  # noqa: E402
-                                     QModelConfig, parse_scheme)
-from mxmoe_tpu.serving.engine import Engine, EngineConfig  # noqa: E402
+from mxmoe.models import configs, model  # noqa: E402
+from mxmoe.models.layers import MoEImpl  # noqa: E402
+from mxmoe.parallel.ep import EPConfig  # noqa: E402
+from mxmoe.quant import qparams  # noqa: E402
+from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,  # noqa: E402
+                                 QModelConfig, parse_scheme)
+from mxmoe.serving.engine import Engine, EngineConfig  # noqa: E402
 
 n_dev = 4 * nproc
 assert jax.process_count() == nproc

@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # goes through the library entry point (idempotency + ordering contract
 # live there — a jax.process_count() pre-check would break it)
-from mxmoe_tpu.parallel.multihost import initialize  # noqa: E402
+from mxmoe.parallel.multihost import initialize  # noqa: E402
 
 initialize(coordinator_address=f"localhost:{port}", num_processes=nproc,
            process_id=pid)
@@ -32,8 +32,8 @@ import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 
-from mxmoe_tpu.models import configs, model  # noqa: E402
-from mxmoe_tpu.parallel.multihost import (  # noqa: E402
+from mxmoe.models import configs, model  # noqa: E402
+from mxmoe.parallel.multihost import (  # noqa: E402
     host_expert_mesh, make_multihost_ep_fn, MultihostEPConfig,
 )
 
@@ -69,7 +69,7 @@ out = jax.jit(fn)(gx, grouter, ggu, gdn)
 out_full = np.asarray(multihost_utils.process_allgather(out, tiled=True))
 
 # oracle: dense routed-expert execution on process-local copies
-from mxmoe_tpu.ops.dispatch import route_topk  # noqa: E402
+from mxmoe.ops.dispatch import route_topk  # noqa: E402
 
 logits = x @ lp["router"]
 routing = route_topk(jnp.asarray(logits), cfg.top_k, cfg.norm_topk_prob,

@@ -1,123 +1,84 @@
-"""Mixed w4(packed)+w8 bucketed execution (bench headline path) vs oracle."""
+"""The headline bench step (bench.py): mixed w4a4(packed)+w8a8 in one
+launch per GEMM, aligned row layout, vs the fake-quant oracle."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 import bench as bench_mod
-from mxmoe_tpu.bench.workloads import GroupGemmWorkload
-from mxmoe_tpu.ops import pallas_gmm
-from mxmoe_tpu.ops.gmm import gmm_dense_reference
-from mxmoe_tpu.quant.packing import unpack_int4_halves
-from mxmoe_tpu.quant.qparams import quantize_act_per_token
+from mxmoe.bench.workloads import GroupGemmWorkload
+from mxmoe.ops.gmm import gmm_dense_reference, ragged_to_dense_int8
+from mxmoe.quant.qparams import (quantize_act_per_row_bits,
+                                 quantize_act_per_token)
 
-INTERPRET = jax.default_backend() == "cpu"
+WL = GroupGemmWorkload("t", group_sizes=(40, 24, 56, 8, 72, 56), k=128, n=128,
+                       shared_m=32, shared_k=128, shared_n=64)
+MASK = np.array([True, False, True, False, True, False])
+
+
+def _build(bm, seed=0):
+    operands = [bench_mod._build_fp_operands(WL, jax.random.PRNGKey(seed),
+                                             dtype=jnp.float32)]
+    return operands, bench_mod.quantize_mixed(operands, [MASK], bm=bm)[0]
 
 
 def test_mixed_bucketed_matches_oracle():
-    wl = GroupGemmWorkload("t", group_sizes=(40, 24, 56, 8, 72, 56), k=128, n=128)
-    key = jax.random.PRNGKey(0)
-    operands = [bench_mod._build_fp_operands(wl, key, dtype=jnp.float32)]
-    mask = np.array([True, False, True, False, True, False])
-    qmix = bench_mod._quantize_weights_mixed(operands, [mask])
-    p = qmix[0]
-
-    # run the two bucketed launches (interpret mode)
-    lhs, m4 = p["lhs"], p["m4"]
-    aq4, asc4 = quantize_act_per_token(lhs[:m4], 4)
-    o4 = pallas_gmm.gmm_w4a8_packed(
-        aq4, asc4, p["q4p"], p["sc4"], jnp.asarray(p["gs4"], jnp.int32),
-        bm=32, bn=128, static_sizes=p["gs4"], out_dtype=jnp.float32,
-        interpret=INTERPRET,
-    )
-    aq8, asc8 = quantize_act_per_token(lhs[m4:], 8)
-    o8 = pallas_gmm.gmm_w8a8(
-        aq8, asc8, p["q8"], p["sc8"], jnp.asarray(p["gs8"], jnp.int32),
-        bm=32, bn=128, static_sizes=p["gs8"], out_dtype=jnp.float32,
-        interpret=INTERPRET,
-    )
-
-    # oracle: dequantized dense reference per bucket
-    w4 = unpack_int4_halves(p["q4p"]).astype(jnp.float32) * p["sc4"]
-    a4 = aq4.astype(jnp.float32) * asc4
-    ref4 = gmm_dense_reference(a4, w4, jnp.asarray(p["gs4"], jnp.int32))
-    np.testing.assert_allclose(np.asarray(o4), np.asarray(ref4), rtol=1e-4, atol=1e-4)
-
-    w8 = p["q8"].astype(jnp.float32) * p["sc8"]
-    a8 = aq8.astype(jnp.float32) * asc8
-    ref8 = gmm_dense_reference(a8, w8, jnp.asarray(p["gs8"], jnp.int32))
-    np.testing.assert_allclose(np.asarray(o8), np.asarray(ref8), rtol=1e-4, atol=1e-4)
-
-    # row permutation covers all rows exactly once
-    assert m4 == sum(p["gs4"]) and lhs.shape[0] - m4 == sum(p["gs8"])
+    """Routed and shared outputs of one headline step match the dense
+    reference on the dequantized operands (w4 experts nibble-packed in
+    the ragged buffer, w8 experts int8)."""
+    bm = 16
+    _, p = _build(bm)
+    routed, shared = bench_mod.mixed_layer_outputs(p, bm=bm)
+    aq, asc = quantize_act_per_row_bits(p["lhs"], p["bits"])
+    wq = ragged_to_dense_int8(p["cat"], p["pf"], p["blk"], WL.k)
+    ref = gmm_dense_reference(aq.astype(jnp.float32) * asc,
+                              wq.astype(jnp.float32) * p["wsc"],
+                              p["gs"])
+    np.testing.assert_allclose(np.asarray(routed, np.float32),
+                               np.asarray(ref), rtol=1e-2, atol=1e-2)
+    saq, sasc = quantize_act_per_token(p["sl"], 8)
+    sref = (saq.astype(jnp.float32) * sasc) @ (p["sw"].astype(jnp.float32)
+                                              * p["ssc"])
+    np.testing.assert_allclose(np.asarray(shared, np.float32),
+                               np.asarray(sref), rtol=1e-2, atol=1e-2)
+    # w4 experts hold ±7 codes in half the rows of an int8 expert
+    assert p["cat"].shape[0] == (MASK.sum() * WL.k // 2
+                                 + (~MASK).sum() * WL.k)
+    assert np.abs(np.asarray(wq)[MASK]).max() <= 7
 
 
 def test_mixed_aligned_layout_properties():
-    """Aligned layout: every group size is a BENCH_BM multiple, padding
-    rows are zero, and real rows are preserved in order."""
-    wl = GroupGemmWorkload("t", group_sizes=(40, 24, 56, 8, 72, 56), k=128, n=128)
-    operands = [bench_mod._build_fp_operands(wl, jax.random.PRNGKey(1),
-                                             dtype=jnp.float32)]
-    mask = np.array([True, False, True, False, True, False])
-    qmix = bench_mod._quantize_weights_mixed(operands, [mask])
-    p = qmix[0]
-    bm = bench_mod.BENCH_BM
-    assert all(g % bm == 0 for g in p["gs4"] + p["gs8"])
-    # padded rows are exactly zero
+    """Aligned layout: every group size is a bm multiple, padding rows are
+    zero, and real rows are preserved in order."""
+    bm = 16
+    _, p = _build(bm, seed=1)
+    gs = np.asarray(p["gs"])
+    assert all(g % bm == 0 for g in gs)
     lhs = np.asarray(p["lhs"])
-    sizes = np.array(p["gs4"] + p["gs8"])
-    orig_sizes = [40, 56, 72, 24, 8, 56]  # w4 experts first (0,2,4) then w8
     off = 0
-    for g_pad, g_real in zip(sizes, orig_sizes):
-        pad_rows = lhs[off + g_real: off + g_pad]
-        assert np.all(pad_rows == 0)
+    for g_pad, g_real in zip(gs, WL.group_sizes):
+        assert np.all(lhs[off + g_real: off + g_pad] == 0)
         assert np.any(lhs[off: off + g_real] != 0)
         off += g_pad
+    bits = np.asarray(p["bits"])
+    starts = np.concatenate([[0], np.cumsum(gs)])
+    for e in range(len(MASK)):
+        assert np.all(bits[starts[e]:starts[e + 1]] == (4.0 if MASK[e] else 8.0))
 
 
 def test_onelaunch_aligned_matches_unaligned_bitwise():
-    """The aligned one-launch layout (bench.py default: pad each expert's
-    rows to a bm multiple) must produce bitwise-identical expert outputs
-    to the unaligned layout — padding only inserts zero rows."""
-    from mxmoe_tpu.ops.act_quant import quantize_rows
-    from mxmoe_tpu.quant.qparams import quantize_act_per_row_bits
-
-    wl = GroupGemmWorkload("t", group_sizes=(5, 9, 0, 10), k=32, n=48)
-    key = jax.random.PRNGKey(2)
-    operands = [bench_mod._build_fp_operands(wl, key, dtype=jnp.float32)]
-    mask = np.array([True, False, True, False])
-    gs = np.array(wl.group_sizes)
-    bm = 8
-
-    old_bm, old_aligned = bench_mod.BENCH_BM, bench_mod.BENCH_ALIGNED
-    try:
-        bench_mod.BENCH_BM, bench_mod.BENCH_ALIGNED = bm, False
-        pu = bench_mod._quantize_weights_mixed_onelaunch(operands, [mask])[0]
-        bench_mod.BENCH_ALIGNED = True
-        pa = bench_mod._quantize_weights_mixed_onelaunch(operands, [mask])[0]
-    finally:
-        bench_mod.BENCH_BM, bench_mod.BENCH_ALIGNED = old_bm, old_aligned
-
-    aqu, ascu = quantize_act_per_row_bits(pu["lhs"], pu["bits"])
-    ou = pallas_gmm.gmm_w8a8(
-        aqu, ascu, pu["wq"], pu["wsc"], jnp.asarray(pu["gs"], jnp.int32),
-        bm=bm, bn=wl.n, static_sizes=pu["gs"], interpret=INTERPRET)
-    # aligned path with the Pallas quant kernel (the bench default)
-    aqa, asca = quantize_rows(pa["lhs"], pa["bits"], interpret=INTERPRET)
-    oa = pallas_gmm.gmm_w8a8(
-        aqa, asca, pa["wq"], pa["wsc"], jnp.asarray(pa["gs"], jnp.int32),
-        bm=bm, bn=wl.n, static_sizes=pa["gs"], aligned=True,
-        interpret=INTERPRET)
-    ows = pallas_gmm.gmm_w8a8_ws(
-        aqa, asca, pa["wq"], pa["wsc"], pa["gs"], bm=bm,
-        interpret=INTERPRET)
-
-    padded = ((gs + bm - 1) // bm) * bm
-    st_a = np.concatenate([[0], np.cumsum(padded)])
-    st_u = np.concatenate([[0], np.cumsum(gs)])
+    """Padding every expert's rows to a bm multiple only inserts zero rows:
+    each expert's real rows come out bitwise-identical to a layout whose
+    groups were padded to a different bm."""
+    outs = {}
+    for bm in (8, 16):
+        _, p = _build(bm, seed=2)
+        outs[bm] = (np.asarray(bench_mod.mixed_layer_outputs(
+            p, bm=bm)[0], np.float32), np.asarray(p["gs"]))
+    gs = np.array(WL.group_sizes)
+    (o8, g8), (o16, g16) = outs[8], outs[16]
+    s8 = np.concatenate([[0], np.cumsum(g8)])
+    s16 = np.concatenate([[0], np.cumsum(g16)])
     for e in range(len(gs)):
-        rows_u = np.asarray(ou[st_u[e]: st_u[e] + gs[e]], np.float32)
-        rows_a = np.asarray(oa[st_a[e]: st_a[e] + gs[e]], np.float32)
-        rows_w = np.asarray(ows[st_a[e]: st_a[e] + gs[e]], np.float32)
-        np.testing.assert_array_equal(rows_a, rows_u)
-        np.testing.assert_array_equal(rows_w, rows_a)
+        np.testing.assert_array_equal(o8[s8[e]: s8[e] + gs[e]],
+                                      o16[s16[e]: s16[e] + gs[e]])

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.ops.dispatch import route_topk
-from mxmoe_tpu.quant.calibrate import moe_calib_errors, calibrate_model
-from mxmoe_tpu.quant.rtn import fake_quant
-from mxmoe_tpu.quant.schemes import QLinearConfig
+from mxmoe.models import configs, model
+from mxmoe.ops.dispatch import route_topk
+from mxmoe.quant.calibrate import moe_calib_errors, calibrate_model
+from mxmoe.quant.rtn import fake_quant
+from mxmoe.quant.schemes import QLinearConfig
 
 
 def _fq_w_nk_grouping(w_kn, qcfg):
@@ -133,7 +133,7 @@ def test_calibrate_gptq_and_had_methods(tmp_path):
 
 
 def test_model_out_norm_metric_and_resume(tmp_path):
-    from mxmoe_tpu.quant.calibrate import model_out_norm_errors
+    from mxmoe.quant.calibrate import model_out_norm_errors
 
     cfg = configs.tiny_qwen2_moe(num_experts=3, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(8), dtype=jnp.float32)
@@ -162,9 +162,9 @@ def test_calibrate_stage_host_matches_unstaged():
     """Host-staged calibration (params held as numpy, one layer moved per
     iteration — the reference's layer.to(cuda), quant.py:551) produces the
     same losses as the all-on-device path."""
-    from mxmoe_tpu.models import configs, model as model_mod
-    from mxmoe_tpu.quant.calibrate import calibrate_model
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.models import configs, model as model_mod
+    from mxmoe.quant.calibrate import calibrate_model
+    from mxmoe.quant.schemes import parse_scheme
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model_mod.init_params(cfg, jax.random.PRNGKey(0),

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
 
 
 def _write_fake_hf_ckpt(tmp_path, cfg, seed=0):
@@ -62,8 +62,8 @@ def test_convert_roundtrip_and_quantized(tmp_path, monkeypatch):
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     _write_fake_hf_ckpt(tmp_path, cfg)
 
-    from mxmoe_tpu.models import convert as cv
-    from mxmoe_tpu.models import configs as cfgs
+    from mxmoe.models import convert as cv
+    from mxmoe.models import configs as cfgs
 
     monkeypatch.setattr(cfgs, "config_for", lambda m: cfg)
 
@@ -80,7 +80,7 @@ def test_convert_roundtrip_and_quantized(tmp_path, monkeypatch):
     qparams = cv.convert(str(tmp_path / "hf"), "tiny", str(tmp_path / "out_q"),
                          quant="w8a8_g-1_sym", dtype=jnp.float32)
     assert "expert_gate_up_q" in qparams["layers"]
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.schemes import parse_scheme
 
     impl = MoEImpl(kind="ragged", quant=parse_scheme("w8a8_g-1_sym"),
                    interpret=jax.default_backend() == "cpu")
@@ -97,9 +97,9 @@ def test_packed_int4_forward_runs():
     """convert --pack-int4 output executes through the packed kernel path."""
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(3), dtype=jnp.float32)
-    from mxmoe_tpu.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu.quant.packing import pack_int4_halves
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.qparams import quantize_model_experts_uniform
+    from mxmoe.quant.packing import pack_int4_halves
+    from mxmoe.quant.schemes import parse_scheme
 
     qc = parse_scheme("w4a8_g-1_sym")
     qp = quantize_model_experts_uniform(params, qc)
@@ -109,7 +109,7 @@ def test_packed_int4_forward_runs():
     qp = dict(qp)
     qp["layers"] = layers
 
-    from mxmoe_tpu.models.layers import MoEImpl
+    from mxmoe.models.layers import MoEImpl
     impl = MoEImpl(kind="ragged", quant=qc, interpret=jax.default_backend() == "cpu")
     toks = jax.random.randint(jax.random.PRNGKey(4), (1, 16), 0, cfg.vocab_size)
     logits_packed = model.forward_logits(qp, toks, cfg, impl)
@@ -130,10 +130,10 @@ def test_convert_mixed_qconfig_packed_roundtrip(tmp_path, monkeypatch):
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     _write_fake_hf_ckpt(tmp_path, cfg)
 
-    from mxmoe_tpu.models import convert as cv
-    from mxmoe_tpu.models import configs as cfgs
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models import convert as cv
+    from mxmoe.models import configs as cfgs
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     monkeypatch.setattr(cfgs, "config_for", lambda m: cfg)
     schemes = ["w4a4_g-1_sym", "w8a8_g-1_sym"]
@@ -166,14 +166,14 @@ def test_convert_mixed_qconfig_packed_roundtrip(tmp_path, monkeypatch):
 def test_artifact_serves_through_engine(tmp_path, monkeypatch):
     """convert --qconfig artifact -> Engine generation (the full switch-
     user story: quantize once offline, load, serve)."""
-    from mxmoe_tpu.serving.engine import Engine, EngineConfig
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.serving.engine import Engine, EngineConfig
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     _write_fake_hf_ckpt(tmp_path, cfg)
-    from mxmoe_tpu.models import convert as cv
-    from mxmoe_tpu.models import configs as cfgs
+    from mxmoe.models import convert as cv
+    from mxmoe.models import configs as cfgs
 
     monkeypatch.setattr(cfgs, "config_for", lambda m: cfg)
     qmc = QModelConfig(layers={str(l): QLayerConfig(experts={
@@ -199,7 +199,7 @@ def test_artifact_serves_through_engine(tmp_path, monkeypatch):
 def test_loader_as_numpy_matches_jax(tmp_path):
     """as_numpy=True must produce the identical pytree as the jax path
     (numpy leaves, same values/dtypes)."""
-    from mxmoe_tpu.models.hf_loader import params_from_safetensors
+    from mxmoe.models.hf_loader import params_from_safetensors
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     _write_fake_hf_ckpt(tmp_path, cfg)

@@ -1,57 +1,71 @@
-"""Fused decode-attention kernel vs the XLA cached-attention oracle."""
+"""Cached decode attention (the XLA path over serving/kv_cache.py) vs an
+independent numpy oracle, and the stacked-cache write protocol."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mxmoe_tpu.serving.decode_attention import (
-    decode_attention, decode_attention_q8,
-)
-from mxmoe_tpu.serving.kv_cache import (
-    attention_with_cache, attention_with_quant_cache, _quant_vec,
+from mxmoe.serving.kv_cache import (
+    _quant_vec, attention_with_cache, attention_with_quant_cache,
+    scatter_layer_cache, scatter_layer_cache_quant,
 )
 
-INTERPRET = jax.default_backend() == "cpu"
+
+def _np_decode_attention(q, ck, cv, lengths, scale=None):
+    """q [B, n_h, dk]; ck [B, n_kv, S, dk]; cv [B, n_kv, S, dv]: query at
+    position ``lengths[b]`` attends cache slots 0..lengths[b]."""
+    q, ck, cv = (np.asarray(a, np.float64) for a in (q, ck, cv))
+    b, n_h, dk = q.shape
+    n_kv = ck.shape[1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(dk)
+    out = np.zeros((b, n_h, cv.shape[-1]))
+    for bi in range(b):
+        t = int(lengths[bi]) + 1
+        for h in range(n_h):
+            kv = h // (n_h // n_kv)
+            s = ck[bi, kv, :t] @ q[bi, h] * scale
+            p = np.exp(s - s.max())
+            out[bi, h] = (p / p.sum()) @ cv[bi, kv, :t]
+    return out
 
 
-@pytest.mark.parametrize("n_h,n_kv,dk,dv,s_max,block_s", [
-    (8, 2, 32, 32, 128, 64),      # GQA
-    (4, 4, 40, 24, 96, 96),       # MLA-style: dk != dv, no grouping
-    (8, 8, 32, 32, 200, 64),      # ragged s_max vs block
+@pytest.mark.parametrize("n_h,n_kv,dk,dv,s_max", [
+    (8, 2, 32, 32, 128),      # GQA
+    (4, 4, 40, 24, 96),       # MLA-style: dk != dv, no grouping
+    (8, 8, 32, 32, 200),      # s_max not a power of two
 ])
-def test_decode_attention_matches_oracle(n_h, n_kv, dk, dv, s_max, block_s):
+def test_decode_attention_matches_oracle(n_h, n_kv, dk, dv, s_max):
     b = 4
-    key = jax.random.PRNGKey(0)
-    k1, k2, k3, k4 = jax.random.split(key, 4)
+    k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(0), 4)
     q = jax.random.normal(k1, (b, 1, n_h, dk), jnp.float32)
     ck = jax.random.normal(k2, (b, n_kv, s_max, dk), jnp.float32)
     cv = jax.random.normal(k3, (b, n_kv, s_max, dv), jnp.float32)
     lengths = jax.random.randint(k4, (b,), 0, s_max - 1)
-
-    ref = attention_with_cache(q, ck, cv, lengths, 1)          # [B,1,n_h,dv]
-    got = decode_attention(q[:, 0], ck, cv, lengths,
-                           block_s=block_s, interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref[:, 0]),
-                               rtol=2e-5, atol=2e-5)
+    got = attention_with_cache(q, ck, cv, lengths, 1)           # [B,1,n_h,dv]
+    ref = _np_decode_attention(q[:, 0], ck, cv, np.asarray(lengths))
+    np.testing.assert_allclose(np.asarray(got[:, 0]), ref, rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_decode_attention_q8_matches_oracle():
+    """The int8 cache folds its per-vector scales into scores and probs:
+    equal to attention over the dequantized cache."""
     b, n_h, n_kv, hd, s_max = 4, 8, 2, 32, 160
-    key = jax.random.PRNGKey(1)
-    k1, k2, k3, k4 = jax.random.split(key, 4)
+    k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(1), 4)
     q = jax.random.normal(k1, (b, 1, n_h, hd), jnp.float32)
     ck = jax.random.normal(k2, (b, n_kv, s_max, hd), jnp.float32)
     cv = jax.random.normal(k3, (b, n_kv, s_max, hd), jnp.float32)
     lengths = jax.random.randint(k4, (b,), 1, s_max - 1)
     ckq, cks = _quant_vec(ck)
     cvq, cvs = _quant_vec(cv)
-
-    ref = attention_with_quant_cache(q, ckq, cks, cvq, cvs, lengths, 1)
-    got = decode_attention_q8(q[:, 0], ckq, cks, cvq, cvs, lengths,
-                              block_s=64, interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref[:, 0]),
-                               rtol=2e-4, atol=2e-4)
+    got = attention_with_quant_cache(q, ckq, cks, cvq, cvs, lengths, 1)
+    ref = _np_decode_attention(
+        q[:, 0], np.asarray(ckq, np.float64) * np.asarray(cks)[..., None],
+        np.asarray(cvq, np.float64) * np.asarray(cvs)[..., None],
+        np.asarray(lengths))
+    np.testing.assert_allclose(np.asarray(got[:, 0]), ref, rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_decode_attention_zero_length():
@@ -60,23 +74,22 @@ def test_decode_attention_zero_length():
     key = jax.random.PRNGKey(2)
     q = jax.random.normal(key, (b, 1, n_h, hd), jnp.float32)
     ck = jax.random.normal(key, (b, n_kv, s_max, hd), jnp.float32)
-    cv = jax.random.normal(key, (b, n_kv, s_max, hd), jnp.float32)
-    lengths = jnp.zeros((b,), jnp.int32)
-    ref = attention_with_cache(q, ck, cv, lengths, 1)
-    got = decode_attention(q[:, 0], ck, cv, lengths, block_s=32,
-                           interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref[:, 0]),
-                               rtol=2e-5, atol=2e-5)
+    cv = jax.random.normal(jax.random.PRNGKey(3), (b, n_kv, s_max, hd))
+    got = attention_with_cache(q, ck, cv, jnp.zeros((b,), jnp.int32), 1)
+    want = jnp.repeat(cv[:, :, 0], n_h // n_kv, axis=1)          # [B,n_h,hd]
+    np.testing.assert_allclose(np.asarray(got[:, 0]), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("family", ["qwen2_moe", "ds2"])
 def test_forward_cached_fused_decode_matches_xla(family):
-    """Full decode step through forward_cached: fused kernel == XLA path
-    (bf16 cache and int8 cache, GQA and MLA)."""
-    from mxmoe_tpu.models import configs, model
-    from mxmoe_tpu.models.layers import MoEImpl
-    from mxmoe_tpu.serving.decode import forward_cached
-    from mxmoe_tpu.serving.kv_cache import init_kv_cache, init_quant_kv_cache
+    """One cached decode step after a cached prefill equals the last
+    position of the uncached forward over the whole sequence (bf16 cache
+    and int8 cache, GQA and MLA)."""
+    from mxmoe.models import configs, model
+    from mxmoe.models.layers import MoEImpl
+    from mxmoe.serving.decode import forward_cached
+    from mxmoe.serving.kv_cache import init_kv_cache, init_quant_kv_cache
 
     cfg = (configs.tiny_qwen2_moe(num_experts=4, num_layers=2) if
            family == "qwen2_moe" else configs.tiny_ds2(num_experts=4,
@@ -85,191 +98,91 @@ def test_forward_cached_fused_decode_matches_xla(family):
     toks = jax.random.randint(jax.random.PRNGKey(4), (2, 6), 0, cfg.vocab_size)
     step_tok = jax.random.randint(jax.random.PRNGKey(5), (2, 1), 0,
                                   cfg.vocab_size)
-
-    for make_cache in (init_kv_cache, init_quant_kv_cache):
+    full = model.forward_logits(params, jnp.concatenate([toks, step_tok], 1),
+                                cfg, MoEImpl())[:, -1]
+    for make_cache, tol in ((init_kv_cache, 2e-4),
+                            (init_quant_kv_cache, 5e-2)):
         kwargs = {} if make_cache is init_quant_kv_cache else \
             {"dtype": jnp.float32}
         cache = make_cache(cfg, 2, 32, **kwargs)
-        _, cache = forward_cached(params, toks, cache, cfg,
-                                  impl=MoEImpl(decode_attn="xla"))
-        ref, _ = forward_cached(params, step_tok, cache, cfg,
-                                impl=MoEImpl(decode_attn="xla"))
-        got, _ = forward_cached(params, step_tok, cache, cfg,
-                                impl=MoEImpl(decode_attn="fused",
-                                             interpret=INTERPRET))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=2e-4, atol=2e-4)
+        _, cache = forward_cached(params, toks, cache, cfg, impl=MoEImpl())
+        got, _ = forward_cached(params, step_tok, cache, cfg, impl=MoEImpl())
+        np.testing.assert_allclose(np.asarray(got[:, 0]), np.asarray(full),
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_decode_attention_stacked_matches_oracle(quant):
-    """Length-looped stacked-cache kernel (the serving hot path) vs the
-    per-layer XLA oracle, bf16 and int8-quant layouts."""
-    from mxmoe_tpu.serving.decode_attention import decode_attention_stacked
-
+    """Attention over one layer of the STACKED [L, ...] cache equals the
+    oracle on that layer's slice, bf16 and int8-quant layouts."""
     nl, b, n_h, n_kv, hd, s_max = 3, 4, 8, 2, 32, 192
-    key = jax.random.PRNGKey(3)
-    k1, k2, k3, k4 = jax.random.split(key, 4)
+    k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(3), 4)
     q = jax.random.normal(k1, (b, 1, n_h, hd), jnp.float32)
     ck = jax.random.normal(k2, (nl, b, n_kv, s_max, hd), jnp.float32)
     cv = jax.random.normal(k3, (nl, b, n_kv, s_max, hd), jnp.float32)
-    lengths = jax.random.randint(k4, (b,), 0, s_max - 1)
-
+    lengths = np.asarray(jax.random.randint(k4, (b,), 0, s_max - 1))
     for layer in (0, 2):
-        l = jnp.int32(layer)
         if quant:
             ckq, cks = _quant_vec(ck)
             cvq, cvs = _quant_vec(cv)
-            ref = attention_with_quant_cache(
-                q, ckq[layer], cks[layer], cvq[layer], cvs[layer], lengths, 1)
-            got, (ckq2, cks2, _, _) = decode_attention_stacked(
-                q[:, 0], ckq, cks, cvq, cvs, lengths, l, block_s=64,
-                interpret=INTERPRET)
-            # aliased pass-through preserves the cache contents
-            np.testing.assert_array_equal(np.asarray(ckq2), np.asarray(ckq))
-            np.testing.assert_array_equal(np.asarray(cks2), np.asarray(cks))
+            got = attention_with_quant_cache(q, ckq[layer], cks[layer],
+                                             cvq[layer], cvs[layer],
+                                             jnp.asarray(lengths), 1)
+            ref = _np_decode_attention(
+                q[:, 0],
+                np.asarray(ckq[layer], np.float64) * np.asarray(cks[layer])[..., None],
+                np.asarray(cvq[layer], np.float64) * np.asarray(cvs[layer])[..., None],
+                lengths)
             tol = 2e-4
         else:
-            ref = attention_with_cache(q, ck[layer], cv[layer], lengths, 1)
-            got, (ck2, cv2) = decode_attention_stacked(
-                q[:, 0], ck, None, cv, None, lengths, l, block_s=64,
-                interpret=INTERPRET)
-            np.testing.assert_array_equal(np.asarray(ck2), np.asarray(ck))
+            got = attention_with_cache(q, ck[layer], cv[layer],
+                                       jnp.asarray(lengths), 1)
+            ref = _np_decode_attention(q[:, 0], ck[layer], cv[layer], lengths)
             tol = 2e-5
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref[:, 0]),
-                                   rtol=tol, atol=tol)
-
-
-def test_mla_fused_gate_now_open():
-    """Round-2 verdict weak #5: ds2's 192-wide qk (nope 128 + rope 64) now
-    takes the fused decode kernel via the 128-padded K cache
-    (kv_cache.mla_cache_k_dim) instead of always falling back to the XLA
-    einsum path."""
-    import dataclasses
-
-    from mxmoe_tpu.models import configs
-    from mxmoe_tpu.serving.decode_attention import supports_manual_decode
-    from mxmoe_tpu.serving.kv_cache import init_kv_cache, mla_cache_k_dim
-
-    cfg = dataclasses.replace(configs.tiny_ds2(), qk_nope_head_dim=128,
-                              qk_rope_head_dim=64, v_head_dim=128)
-    assert cfg.qk_head_dim == 192
-    assert mla_cache_k_dim(cfg) == 256
-    assert supports_manual_decode(mla_cache_k_dim(cfg), cfg.v_head_dim)
-    cache = init_kv_cache(cfg, 2, 16)
-    assert cache.k.shape[-1] == 256 and cache.v.shape[-1] == 128
+        np.testing.assert_allclose(np.asarray(got[:, 0]), ref, rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_update_stacked_multihead_block_matches_oracle(quant):
-    """hblk > 1 (several KV heads per grid step): the fused update +
-    attention must match scatter + XLA oracle exactly as the one-head
-    grid did. n_kv=8 with small dims picks hblk=8 (one grid step per
-    slot) via _pick_hblk."""
-    from mxmoe_tpu.serving.decode_attention import (
-        _pick_hblk, decode_attention_update_stacked)
-    from mxmoe_tpu.serving.kv_cache import (scatter_layer_cache,
-                                            scatter_layer_cache_quant)
-
-    nl, b, n_h, n_kv, hd, s_max, block_s = 2, 3, 8, 8, 128, 256, 64
-    assert _pick_hblk(n_kv, block_s, hd, hd, 1 if quant else 2,
-                      quant, n_h // n_kv, min(128, s_max)) == 8
-    key = jax.random.PRNGKey(9)
-    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    """The in-place stacked-cache write puts each slot's new K/V at its own
+    position of the chosen layer only (one layer of several, slots at
+    length 0, mid and end), and attention then sees it."""
+    nl, b, n_h, n_kv, hd, s_max = 2, 3, 8, 8, 64, 96
+    k1, k2, k3, k4, k5 = jax.random.split(jax.random.PRNGKey(9), 5)
     q = jax.random.normal(k1, (b, 1, n_h, hd), jnp.float32)
     ck = jax.random.normal(k2, (nl, b, n_kv, s_max, hd), jnp.float32)
     cv = jax.random.normal(k3, (nl, b, n_kv, s_max, hd), jnp.float32)
     k_new = jax.random.normal(k4, (b, 1, n_kv, hd), jnp.float32)
     v_new = jax.random.normal(k5, (b, 1, n_kv, hd), jnp.float32)
-    lengths = jnp.asarray([0, 5, s_max - 2], jnp.int32)
+    lengths = np.asarray([0, 5, s_max - 2], np.int32)
     layer = jnp.int32(1)
 
+    want_k, want_v = np.array(ck), np.array(cv)
+    for bi, pos in enumerate(lengths):
+        want_k[1, bi, :, pos] = np.asarray(k_new[bi, 0])
+        want_v[1, bi, :, pos] = np.asarray(v_new[bi, 0])
     if quant:
         ckq, cks = _quant_vec(ck)
         cvq, cvs = _quant_vec(cv)
-        rkq, rks, rvq, rvs = scatter_layer_cache_quant(
-            ckq, cks, cvq, cvs, layer, k_new, v_new, lengths)
-        ref = attention_with_quant_cache(
-            q, rkq[1], rks[1], rvq[1], rvs[1], lengths, 1)
-        got, (gkq, gks, gvq, gvs) = decode_attention_update_stacked(
-            q[:, 0], k_new[:, 0], v_new[:, 0], ckq, cks, cvq, cvs,
-            lengths, layer, block_s=block_s, interpret=INTERPRET)
-        np.testing.assert_array_equal(np.asarray(gkq), np.asarray(rkq))
-        np.testing.assert_array_equal(np.asarray(gvq), np.asarray(rvq))
-        np.testing.assert_allclose(np.asarray(gks), np.asarray(rks),
-                                   rtol=1e-6)
-        tol = 3e-4
+        gkq, gks, gvq, gvs = scatter_layer_cache_quant(
+            ckq, cks, cvq, cvs, layer, k_new, v_new, jnp.asarray(lengths))
+        np.testing.assert_array_equal(np.asarray(gkq[0]), np.asarray(ckq[0]))
+        kq_new, ks_new = _quant_vec(k_new)
+        for bi, pos in enumerate(lengths):
+            np.testing.assert_array_equal(np.asarray(gkq[1, bi, :, pos]),
+                                          np.asarray(kq_new[bi, 0]))
+            np.testing.assert_allclose(np.asarray(gks[1, bi, :, pos]),
+                                       np.asarray(ks_new[bi, 0]), rtol=1e-6)
+        got = attention_with_quant_cache(q, gkq[1], gks[1], gvq[1], gvs[1],
+                                         jnp.asarray(lengths), 1)
+        tol = 5e-2
     else:
-        rck, rcv = scatter_layer_cache(ck, cv, layer, k_new, v_new, lengths)
-        ref = attention_with_cache(q, rck[1], rcv[1], lengths, 1)
-        got, (gck, gcv) = decode_attention_update_stacked(
-            q[:, 0], k_new[:, 0], v_new[:, 0], ck.astype(jnp.bfloat16),
-            None, cv.astype(jnp.bfloat16), None, lengths, layer,
-            block_s=block_s, interpret=INTERPRET)
-        # bf16 cache vs the f32 oracle cache: pure storage rounding
-        np.testing.assert_allclose(
-            np.asarray(gck).astype(np.float32), np.asarray(rck), atol=4e-2)
-        tol = 2e-2
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref[:, 0]),
-                               rtol=tol, atol=tol)
-
-
-def test_decode_attn_auto_uses_measured_model(tmp_path, monkeypatch):
-    """decode_attn='auto' picks the MEASURED winner per attention family
-    (round-4 weak #6): with a fit table recording different crossovers for
-    the qwen GQA, 57B GQA and ds2 MLA shapes, the choice must follow each
-    family's own lines — not one global constant."""
-    import json
-
-    import mxmoe_tpu.models.layers as L
-    from mxmoe_tpu.models import configs
-
-    table = {
-        # crossover 2000 at b8; at b32 the fused kernel is 4x (grid
-        # dispatches scale with B) -> crossover 8000
-        "gqa:nh16:nkv16:hd128": {
-            "b8": {"xla": [0.05, 5e-5], "fused": [0.15, 0.0]},
-            "b32": {"xla": [0.05, 5e-5], "fused": [0.45, 0.0]}},
-        # tiny n_kv -> cheap XLA reads: crossover 12000 (xla wins longer)
-        "gqa:nh28:nkv4:hd128": {
-            "b8": {"xla": [0.03, 1e-5], "fused": [0.15, 0.0]}},
-        # MLA per-head cache: expensive XLA reads, crossover 500
-        "mla:nh16:dk256:dv128": {
-            "b8": {"xla": [0.05, 2e-4], "fused": [0.15, 0.0]}},
-    }
-    path = tmp_path / "decode_attn_model.json"
-    path.write_text(json.dumps(table))
-    monkeypatch.setenv("MXMOE_DECODE_ATTN_MODEL", str(path))
-    monkeypatch.setattr(L, "_DECODE_ATTN_MODEL", ...)
-
-    impl = L.MoEImpl(decode_attn="auto", interpret=True)  # interpret => "tpu"
-    qwen = configs.QWEN2_MOE_A2_7B
-    b57 = configs.QWEN2_MOE_57B
-    ds2 = configs.DEEPSEEK_V2_LITE
-
-    assert L._decode_attn_key(qwen) == "gqa:nh16:nkv16:hd128"
-    assert L._decode_attn_key(b57) == "gqa:nh28:nkv4:hd128"
-    assert L._decode_attn_key(ds2) == "mla:nh16:dk256:dv128"
-
-    # qwen: crossover at (0.15-0.05)/5e-5 = 2000 (b8 entry)
-    assert not impl.use_fused_decode(1024, cfg=qwen)
-    assert impl.use_fused_decode(4096, cfg=qwen)
-    # batch-dependent: the b32 entry's crossover is 8000 — the same
-    # S_max flips with batch (nearest-batch selection)
-    assert not impl.use_fused_decode(4096, cfg=qwen, batch=32)
-    assert impl.use_fused_decode(4096, cfg=qwen, batch=8)
-    assert impl.use_fused_decode(16000, cfg=qwen, batch=32)
-    # 57B: crossover 12000 — fused loses even at 8192 (the old global
-    # 2048 constant would have picked fused here)
-    assert not impl.use_fused_decode(8192, cfg=b57)
-    assert impl.use_fused_decode(16384, cfg=b57)
-    # MLA: crossover 500 — fused wins already at 1024 (old constant: xla)
-    assert impl.use_fused_decode(1024, cfg=ds2)
-    assert not impl.use_fused_decode(256, cfg=ds2)
-
-    # no table entry / no cfg -> original heuristic preserved
-    monkeypatch.setattr(L, "_DECODE_ATTN_MODEL", None)
-    assert not impl.use_fused_decode(1024, cfg=qwen)
-    assert impl.use_fused_decode(4096, cfg=qwen)
-
-    monkeypatch.setattr(L, "_DECODE_ATTN_MODEL", ...)
+        gck, gcv = scatter_layer_cache(ck, cv, layer, k_new, v_new,
+                                       jnp.asarray(lengths))
+        np.testing.assert_array_equal(np.asarray(gck), want_k)
+        np.testing.assert_array_equal(np.asarray(gcv), want_v)
+        got = attention_with_cache(q, gck[1], gcv[1], jnp.asarray(lengths), 1)
+        tol = 2e-5
+    ref = _np_decode_attention(q[:, 0], want_k[1], want_v[1], lengths)
+    np.testing.assert_allclose(np.asarray(got[:, 0]), ref, rtol=tol, atol=tol)

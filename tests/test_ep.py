@@ -7,9 +7,9 @@ import pytest
 
 from jax.sharding import Mesh, PartitionSpec as P
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.parallel.ep import EPConfig, make_ep_moe_fn
-from mxmoe_tpu.ops.dispatch import route_topk
+from mxmoe.models import configs, model
+from mxmoe.parallel.ep import EPConfig, make_ep_moe_fn
+from mxmoe.ops.dispatch import route_topk
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs multi-device mesh"
@@ -81,10 +81,10 @@ def test_quantized_ep_int8_dispatch_matches_oracle():
     ep = 4
     if len(jax.devices()) < ep:
         pytest.skip("needs 4 devices")
-    from mxmoe_tpu.parallel.ep import make_ep_moe_quant_fn
-    from mxmoe_tpu.quant.qparams import (
+    from mxmoe.parallel.ep import make_ep_moe_quant_fn
+    from mxmoe.quant.qparams import (
         quantize_expert_weights, quantize_act_per_token)
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(4), dtype=jnp.float32)
@@ -133,9 +133,9 @@ def test_sharded_full_forward_matches_single_device():
     if len(jax.devices()) < ep:
         pytest.skip("needs 4 devices")
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from mxmoe_tpu.parallel.sharded import make_sharded_forward, ep_param_shardings
-    from mxmoe_tpu.parallel.ep import EPConfig
-    from mxmoe_tpu.models.layers import MoEImpl
+    from mxmoe.parallel.sharded import make_sharded_forward, ep_param_shardings
+    from mxmoe.parallel.ep import EPConfig
+    from mxmoe.models.layers import MoEImpl
 
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(10), dtype=jnp.float32)
@@ -160,10 +160,10 @@ def test_sharded_quantized_full_forward_runs():
     if len(jax.devices()) < ep:
         pytest.skip("needs 4 devices")
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from mxmoe_tpu.parallel.sharded import make_sharded_forward, ep_param_shardings
-    from mxmoe_tpu.parallel.ep import EPConfig
-    from mxmoe_tpu.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.parallel.sharded import make_sharded_forward, ep_param_shardings
+    from mxmoe.parallel.ep import EPConfig
+    from mxmoe.quant.qparams import quantize_model_experts_uniform
+    from mxmoe.quant.schemes import parse_scheme
 
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(12), dtype=jnp.float32)
@@ -183,7 +183,7 @@ def test_sharded_quantized_full_forward_runs():
 
     # quantized sharded ~ quantized single-device (same quant points modulo
     # per-row act quant; both int8 weights) — loose agreement
-    from mxmoe_tpu.models.layers import MoEImpl
+    from mxmoe.models.layers import MoEImpl
     single = model.forward_logits(qp, toks, cfg, MoEImpl(
         kind="ragged", quant=parse_scheme("w8a8_g-1_sym"),
         interpret=jax.default_backend() == "cpu"))
@@ -199,7 +199,7 @@ def test_ep_with_ds2_routing_semantics():
         pytest.skip("needs 4 devices")
     import dataclasses
 
-    from mxmoe_tpu.models.configs import tiny_ds2
+    from mxmoe.models.configs import tiny_ds2
 
     cfg = dataclasses.replace(tiny_ds2(num_experts=8, num_layers=2),
                               routed_scaling_factor=2.0)
@@ -221,10 +221,10 @@ def test_ep_a4_packed_dispatch_matches_oracle():
     ep = 4
     if len(jax.devices()) < ep:
         pytest.skip("needs 4 devices")
-    from mxmoe_tpu.parallel.ep import make_ep_moe_quant_a4_fn
-    from mxmoe_tpu.quant.qparams import (
+    from mxmoe.parallel.ep import make_ep_moe_quant_a4_fn
+    from mxmoe.quant.qparams import (
         quantize_expert_weights, quantize_act_per_token)
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(40), dtype=jnp.float32)
@@ -294,7 +294,7 @@ def test_ep_drop_stats_and_sentinel():
 
 
 def test_capacity_factor_from_freq():
-    from mxmoe_tpu.parallel.ep import capacity_factor_from_freq
+    from mxmoe.parallel.ep import capacity_factor_from_freq
 
     uniform = np.ones(8)
     cf = capacity_factor_from_freq(uniform, ep=4, margin=1.25)
@@ -311,11 +311,11 @@ def test_mixed_ep_matches_single_device():
     one-launch mixed forward (round-3: the ILP's output composed with
     expert parallelism — bitwidths as data across the wire: assignments
     quantize at the SOURCE to the destination expert's act bits)."""
-    from mxmoe_tpu.models.layers import MoEImpl, moe_ffn_ragged_quant
-    from mxmoe_tpu.parallel.ep import make_ep_moe_mixed_fn
-    from mxmoe_tpu.quant import qparams
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models.layers import MoEImpl, moe_ffn_ragged_quant
+    from mxmoe.parallel.ep import make_ep_moe_mixed_fn
+    from mxmoe.quant import qparams
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     ep = 4
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=1)
@@ -352,12 +352,12 @@ def test_mixed_ep_packed_matches_int8_stored():
     == single-device: the decode weight-traffic win composed with expert
     parallelism, bitwise on the kernel math (packing.shard_ragged_mixed
     re-slices the global buffer per shard with LOCAL block offsets)."""
-    from mxmoe_tpu.models.layers import MoEImpl, moe_ffn_ragged_quant
-    from mxmoe_tpu.parallel.ep import make_ep_moe_mixed_fn
-    from mxmoe_tpu.quant import qparams
-    from mxmoe_tpu.quant.packing import shard_ragged_mixed
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models.layers import MoEImpl, moe_ffn_ragged_quant
+    from mxmoe.parallel.ep import make_ep_moe_mixed_fn
+    from mxmoe.quant import qparams
+    from mxmoe.quant.packing import shard_ragged_mixed
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     ep = 4
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=1)

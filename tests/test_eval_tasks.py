@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.eval.evaluator import task_items, score_items, loglikelihood
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
+from mxmoe.eval.evaluator import task_items, score_items, loglikelihood
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
 
 
 class WhitespaceTokenizer:
@@ -99,7 +99,7 @@ def test_loglikelihood_prefers_trained_continuation():
 
 def test_eval_tasks_logs_failures(monkeypatch, caplog):
     """A failing task is logged and reported, not silently dropped."""
-    import mxmoe_tpu.eval.evaluator as ev
+    import mxmoe.eval.evaluator as ev
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(2), dtype=jnp.float32)

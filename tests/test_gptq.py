@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.quant.gptq import accumulate_hessian, gptq_quantize
-from mxmoe_tpu.quant.rtn import fake_quant
-from mxmoe_tpu.quant.schemes import QLinearConfig
+from mxmoe.quant.gptq import accumulate_hessian, gptq_quantize
+from mxmoe.quant.rtn import fake_quant
+from mxmoe.quant.schemes import QLinearConfig
 
 
 def _rtn_fq_rows(w, cfg):
@@ -147,11 +147,11 @@ def test_gptq_real_flex_packed_roundtrip():
     quantizes (static groups), round-trips through packed serving
     bitwise-identically to int8-stored, and the served codes dequantize
     to exactly what the returned artifact claims (real-exec faithful)."""
-    from mxmoe_tpu.models import configs, model
-    from mxmoe_tpu.models.layers import MoEImpl
-    from mxmoe_tpu.quant.quantizer import quantize_model_experts_mixed_gptq
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models import configs, model
+    from mxmoe.models.layers import MoEImpl
+    from mxmoe.quant.quantizer import quantize_model_experts_mixed_gptq
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     INTERPRET = jax.default_backend() == "cpu"
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
@@ -183,9 +183,9 @@ def test_gptq_non_dividing_k():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from mxmoe_tpu.quant.gptq import accumulate_hessian, gptq_quantize_kn
-    from mxmoe_tpu.quant.rtn import fake_quant_weight
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.gptq import accumulate_hessian, gptq_quantize_kn
+    from mxmoe.quant.rtn import fake_quant_weight
+    from mxmoe.quant.schemes import parse_scheme
 
     k, n, m = 192, 64, 256       # 192 % 128 != 0 -> gcd block 64
     key = jax.random.PRNGKey(0)
@@ -207,7 +207,7 @@ def test_tri_inv_chunked_matches_full_solve():
     (the ds2 dense-layer OOM fix must not change the factor)."""
     from jax.scipy.linalg import solve_triangular
 
-    from mxmoe_tpu.quant.gptq import _tri_inv_chunked
+    from mxmoe.quant.gptq import _tri_inv_chunked
 
     rng = np.random.default_rng(0)
     e, k = 2, 96
@@ -251,9 +251,9 @@ def test_gptq_dense_wide_k_shape():
     the sweep runs, chunking engages, and fake-quant error stays below
     plain RTN's (GPTQ's defining property) — regression for the runbook
     OOM config (round-4 missing #2)."""
-    from mxmoe_tpu.quant.gptq import accumulate_hessian, gptq_quantize_kn
-    from mxmoe_tpu.quant.rtn import quantize as rtn_quantize
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.gptq import accumulate_hessian, gptq_quantize_kn
+    from mxmoe.quant.rtn import quantize as rtn_quantize
+    from mxmoe.quant.schemes import parse_scheme
 
     rng = np.random.default_rng(2)
     k, n = 684, 64             # K ≫ N and 684 % 128 != 0 (gcd path)

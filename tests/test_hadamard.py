@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mxmoe_tpu.quant import fwht, hadamard_matrix, matmul_hadU, random_hadamard_matrix
-from mxmoe_tpu.quant.hadamard import get_had_factor, _construct_hadamard
+from mxmoe.quant import fwht, hadamard_matrix, matmul_hadU, random_hadamard_matrix
+from mxmoe.quant.hadamard import get_had_factor, _construct_hadamard
 
 
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 12, 20, 28, 36, 40, 44, 60, 108, 140, 176])

@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from mxmoe_tpu.models import (
+from mxmoe.models import (
     MoEImpl,
     tiny_qwen2_moe,
     tiny_mixtral,
@@ -108,7 +108,7 @@ def test_dense_and_ragged_agree():
     import jax
 
     cfg = tiny_qwen2_moe(num_experts=6, num_layers=2)
-    from mxmoe_tpu.models import init_params
+    from mxmoe.models import init_params
 
     params = init_params(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(2)
@@ -161,7 +161,7 @@ def _hf_ds2(cfg):
 
 @pytest.mark.parametrize("impl_kind", ["dense", "ragged"])
 def test_ds2_logits_match_hf(impl_kind):
-    from mxmoe_tpu.models.configs import tiny_ds2
+    from mxmoe.models.configs import tiny_ds2
 
     cfg = tiny_ds2(num_experts=4, num_layers=3)
     hf = _hf_ds2(cfg)

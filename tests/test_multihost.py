@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.parallel.multihost import (
+from mxmoe.models import configs, model
+from mxmoe.parallel.multihost import (
     MultihostEPConfig, make_multihost_ep_fn, initialize,
 )
 
@@ -23,7 +23,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _dense_oracle(x, lp, cfg):
-    from mxmoe_tpu.ops.dispatch import route_topk
+    from mxmoe.ops.dispatch import route_topk
 
     logits = x @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob,
@@ -57,8 +57,8 @@ def test_host_expert_mesh_ep_matches_oracle():
 
 
 def test_host_expert_mesh_ep_quantized_with_stats():
-    from mxmoe_tpu.quant.qparams import quantize_expert_weights
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.qparams import quantize_expert_weights
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = configs.tiny_qwen2_moe(num_experts=8, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(2), dtype=jnp.float32)
@@ -123,13 +123,13 @@ def test_host_expert_mesh_ep_mixed_matches_single_device():
     across DCN x ICI; axis-tuple all-to-all + flattened axis_index)."""
     import jax.numpy as jnp
 
-    from mxmoe_tpu.models import configs, model
-    from mxmoe_tpu.models.layers import MoEImpl, moe_ffn_ragged_quant
-    from mxmoe_tpu.parallel.multihost import (MultihostEPConfig,
-                                              make_multihost_ep_fn)
-    from mxmoe_tpu.quant import qparams
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models import configs, model
+    from mxmoe.models.layers import MoEImpl, moe_ffn_ragged_quant
+    from mxmoe.parallel.multihost import (MultihostEPConfig,
+                                          make_multihost_ep_fn)
+    from mxmoe.quant import qparams
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -164,14 +164,14 @@ def test_host_expert_mesh_ep_mixed_packed_matches_single_device():
     traffic on every shard of a DCN x ICI deployment."""
     import jax.numpy as jnp
 
-    from mxmoe_tpu.models import configs, model
-    from mxmoe_tpu.models.layers import MoEImpl, moe_ffn_ragged_quant
-    from mxmoe_tpu.parallel.multihost import (MultihostEPConfig,
-                                              make_multihost_ep_fn)
-    from mxmoe_tpu.quant import qparams
-    from mxmoe_tpu.quant.packing import shard_ragged_mixed
-    from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                         QModelConfig, parse_scheme)
+    from mxmoe.models import configs, model
+    from mxmoe.models.layers import MoEImpl, moe_ffn_ragged_quant
+    from mxmoe.parallel.multihost import (MultihostEPConfig,
+                                          make_multihost_ep_fn)
+    from mxmoe.quant import qparams
+    from mxmoe.quant.packing import shard_ragged_mixed
+    from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                     QModelConfig, parse_scheme)
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")

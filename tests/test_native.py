@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mxmoe_tpu import native
+from mxmoe import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="libmxmoe_pack.so not built"
@@ -16,8 +16,8 @@ def test_rtn_quant_matches_jax_sym():
     codes, scales, zps = native.rtn_quant(w, gsize=-1, bits=8, sym=True)
 
     import jax.numpy as jnp
-    from mxmoe_tpu.quant.packing import quantize_weight_kn
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn
+    from mxmoe.quant.schemes import QLinearConfig
 
     p = quantize_weight_kn(jnp.asarray(w).T, QLinearConfig(w_bits=8, w_gsize=-1, w_sym=True))
     np.testing.assert_array_equal(codes, np.asarray(p.values, np.int8).T)
@@ -30,8 +30,8 @@ def test_rtn_quant_matches_jax_asym_grouped():
     codes, scales, zps = native.rtn_quant(w, gsize=32, bits=4, sym=False)
 
     import jax.numpy as jnp
-    from mxmoe_tpu.quant.packing import quantize_weight_kn
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn
+    from mxmoe.quant.schemes import QLinearConfig
 
     p = quantize_weight_kn(jnp.asarray(w).T, QLinearConfig(w_bits=4, w_gsize=32, w_sym=False))
     np.testing.assert_array_equal(codes, np.asarray(p.values, np.int8).T)
@@ -48,7 +48,7 @@ def test_pack_int4_matches_jax():
     got = native.pack_int4(codes)
 
     import jax.numpy as jnp
-    from mxmoe_tpu.quant.packing import pack_int4_rows
+    from mxmoe.quant.packing import pack_int4_rows
 
     want = np.asarray(pack_int4_rows(jnp.asarray(codes)))
     np.testing.assert_array_equal(got, want)

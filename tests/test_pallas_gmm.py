@@ -1,10 +1,10 @@
-"""Pallas grouped-matmul kernels vs dense oracle.
+"""Grouped-matmul kernels vs oracles.
 
-TPU analog of the reference's `check` mode (``test.cu:101-158``): every
-kernel variant is compared element-wise against a reference executed on the
-same (fake-quantized) operands, so only kernel arithmetic is under test.
-On CPU the kernels run in interpreter mode; on TPU (MXMOE_TEST_TPU=1) they
-compile through Mosaic.
+The analog of the reference's `check` mode (``test.cu:101-158``): every
+kernel is compared element-wise against a reference executed on the same
+(fake-quantized) operands, so only kernel arithmetic is under test. Here
+the Triton int8 kernel runs in interpret mode; ``tests/test_gpu.py`` runs
+it compiled on the card.
 """
 
 import jax
@@ -12,10 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mxmoe_tpu.ops import pallas_gmm
-from mxmoe_tpu.ops.gmm import gmm_dense_reference
+from mxmoe.ops import gmm as gmm_ops
+from mxmoe.ops import pallas_gmm
+from mxmoe.ops.gmm import gmm_dense_reference
+from mxmoe.quant.packing import build_ragged_mixed, pack_int4_halves
 
-INTERPRET = jax.default_backend() == "cpu"
+INTERPRET = True      # the Triton kernel's CPU form
 
 
 def _rand_groups(key, e, total):
@@ -46,13 +48,13 @@ def test_group_metadata_basic():
 
 @pytest.mark.parametrize("m,k,n,e", [(256, 128, 256, 8), (384, 256, 128, 5)])
 def test_gmm_bf16_matches_oracle(m, k, n, e):
+    """Unquantized experts: the 'auto' backend (ragged_dot on the CPU)."""
     key = jax.random.PRNGKey(0)
     k1, k2, k3 = jax.random.split(key, 3)
     lhs = jax.random.normal(k1, (m, k), jnp.float32)
     rhs = jax.random.normal(k2, (e, k, n), jnp.float32)
     gs = _rand_groups(k3, e, m)
-
-    out = pallas_gmm.gmm(lhs, rhs, gs, bm=64, bn=128, interpret=INTERPRET)
+    out = gmm_ops.gmm(lhs, rhs, gs)
     ref = gmm_dense_reference(lhs, rhs, gs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-2, atol=2e-2)
 
@@ -63,9 +65,19 @@ def test_gmm_bf16_zero_and_tiny_groups():
     lhs = jax.random.normal(key, (m, k), jnp.float32)
     rhs = jax.random.normal(key, (e, k, n), jnp.float32)
     gs = jnp.array([0, 1, 0, 63, 0, 64], jnp.int32)
-    out = pallas_gmm.gmm(lhs, rhs, gs, bm=32, bn=128, interpret=INTERPRET)
+    out = gmm_ops.gmm(lhs, rhs, gs)
     ref = gmm_dense_reference(lhs, rhs, gs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-2, atol=2e-2)
+
+
+def _int8_operands(key, m, k, n, e, w4=False):
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    hi = 8 if w4 else 128
+    aq = jax.random.randint(k1, (m, k), -127, 128, jnp.int8)
+    asc = jax.random.uniform(k2, (m, 1), jnp.float32, 0.001, 0.02)
+    wq = jax.random.randint(k3, (e, k, n), -hi + (not w4), hi, jnp.int8)
+    wsc = jax.random.uniform(k4, (e, 1, n), jnp.float32, 0.001, 0.02)
+    return aq, asc, wq, wsc
 
 
 def test_gmm_w8a8_matches_fakequant_oracle():
@@ -75,26 +87,15 @@ def test_gmm_w8a8_matches_fakequant_oracle():
     a = jax.random.normal(k1, (m, k), jnp.float32)
     w = jax.random.normal(k2, (e, k, n), jnp.float32)
     gs = _rand_groups(k3, e, m)
-
-    # per-token sym int8 activations
-    a_amax = jnp.max(jnp.abs(a), axis=-1, keepdims=True)
-    a_scale = a_amax / 127.0
+    a_scale = jnp.max(jnp.abs(a), axis=-1, keepdims=True) / 127.0
     a_q = jnp.round(a / a_scale).astype(jnp.int8)
-    # per-channel sym int8 weights
-    w_amax = jnp.max(jnp.abs(w), axis=1, keepdims=True)  # [e,1,n]
-    w_scale = w_amax / 127.0
+    w_scale = jnp.max(jnp.abs(w), axis=1, keepdims=True) / 127.0   # [e,1,n]
     w_q = jnp.round(w / w_scale).astype(jnp.int8)
 
-    out = pallas_gmm.gmm_w8a8(
-        a_q, a_scale, w_q, w_scale, gs, bm=64, bn=128,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    # oracle: dense reference on dequantized operands
-    ref = gmm_dense_reference(
-        a_q.astype(jnp.float32) * a_scale,
-        w_q.astype(jnp.float32) * w_scale,
-        gs,
-    )
+    out = pallas_gmm.gmm_w8a8(a_q, a_scale, w_q, w_scale, gs, bm=64, bn=128,
+                              out_dtype=jnp.float32, interpret=INTERPRET)
+    ref = gmm_dense_reference(a_q.astype(jnp.float32) * a_scale,
+                              w_q.astype(jnp.float32) * w_scale, gs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
@@ -107,60 +108,30 @@ def test_gmm_weight_only_matches_fakequant_oracle(gsize, sym):
     w = jax.random.normal(k2, (e, k, n), jnp.float32)
     gs = _rand_groups(k3, e, m)
 
-    from mxmoe_tpu.quant.packing import quantize_weight_kn, dequantize_weight_kn
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn, dequantize_weight_kn
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = QLinearConfig(w_bits=4, w_gsize=gsize, w_sym=sym, a_bits=16)
     packed = quantize_weight_kn(w, cfg)
-    w_fq = dequantize_weight_kn(packed)
-
-    out = pallas_gmm.gmm_weight_only(
-        a, packed.values.astype(jnp.int8), packed.scale, packed.zp, gs,
-        gsize=gsize, bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    ref = gmm_dense_reference(a, w_fq, gs)
+    out = gmm_ops.gmm_dequant(a, packed.values.astype(jnp.int8),
+                              packed.scale, packed.zp, gs,
+                              out_dtype=jnp.float32)
+    ref = gmm_dense_reference(a, dequantize_weight_kn(packed), gs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-3, atol=2e-3)
 
 
 def test_gmm_w4a8_packed_matches_unpacked():
+    """All-packed [E, K/2, N] stack == the int8-stored stack, bitwise."""
     m, k, n, e = 128, 256, 128, 3
-    key = jax.random.PRNGKey(7)
-    k1, k2, k3 = jax.random.split(key, 3)
-    a = jax.random.normal(k1, (m, k), jnp.float32)
-    w = jax.random.normal(k2, (e, k, n), jnp.float32)
-    gs = _rand_groups(k3, e, m)
-
-    from mxmoe_tpu.quant.packing import pack_int4_halves
-    from mxmoe_tpu.quant.qparams import quantize_act_per_token, quantize_expert_weights
-    from mxmoe_tpu.quant.schemes import QLinearConfig
-
-    aq, asc = quantize_act_per_token(a, 8)
-    qp = quantize_expert_weights(w, QLinearConfig(w_bits=4, w_gsize=-1, w_sym=True, a_bits=8))
-    packed = pack_int4_halves(qp.q)
+    aq, asc, wq, wsc = _int8_operands(jax.random.PRNGKey(7), m, k, n, e, w4=True)
+    gs = _rand_groups(jax.random.PRNGKey(8), e, m)
+    packed = pack_int4_halves(wq)
     assert packed.shape == (e, k // 2, n)
-
-    got = pallas_gmm.gmm_w4a8_packed(
-        aq, asc, packed, qp.scale, gs, bm=64, bn=128,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    want = pallas_gmm.gmm_w8a8(
-        aq, asc, qp.q, qp.scale, gs, bm=64, bn=128,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-
-
-def test_static_sizes_grid_matches_dynamic():
-    m, k, n, e = 256, 128, 256, 6
-    key = jax.random.PRNGKey(8)
-    lhs = jax.random.normal(key, (m, k), jnp.float32)
-    rhs = jax.random.normal(key, (e, k, n), jnp.float32)
-    sizes = (40, 0, 100, 16, 0, 100)
-    gs = jnp.array(sizes, jnp.int32)
-    a = pallas_gmm.gmm(lhs, rhs, gs, bm=64, bn=128, interpret=INTERPRET)
-    b = pallas_gmm.gmm(lhs, rhs, gs, bm=64, bn=128, interpret=INTERPRET,
-                       static_sizes=sizes)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-6)
+    got = pallas_gmm.gmm_w4a8_packed(aq, asc, packed, wsc, gs, bm=64, bn=128,
+                                     out_dtype=jnp.float32, interpret=INTERPRET)
+    want = pallas_gmm.gmm_w8a8(aq, asc, wq, wsc, gs, bm=64, bn=128,
+                               out_dtype=jnp.float32, interpret=INTERPRET)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_gmm_w8a8_grouped_matches_fakequant_oracle():
@@ -170,53 +141,19 @@ def test_gmm_w8a8_grouped_matches_fakequant_oracle():
     a = jax.random.normal(k1, (m, k), jnp.float32)
     w = jax.random.normal(k2, (e, k, n), jnp.float32)
     gs = _rand_groups(k3, e, m)
-
-    # grouped per-token activation quant
     ag = a.reshape(m, k // g, g)
     a_scale = jnp.max(jnp.abs(ag), axis=-1) / 127.0           # [m, k//g]
     a_q = jnp.round(ag / a_scale[..., None]).reshape(m, k).astype(jnp.int8)
-    # grouped per-column weight quant
     wg = w.reshape(e, k // g, g, n)
     w_scale = jnp.max(jnp.abs(wg), axis=2) / 127.0            # [e, k//g, n]
     w_q = jnp.round(wg / w_scale[:, :, None, :]).reshape(e, k, n).astype(jnp.int8)
 
-    out = pallas_gmm.gmm_w8a8_grouped(
-        a_q, a_scale, w_q, w_scale, gs, gsize=g, bm=64, bn=128,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
+    out = gmm_ops.gmm_w8a8_grouped(a_q, a_scale, w_q, w_scale, gs,
+                                   out_dtype=jnp.float32)
     a_fq = (a_q.reshape(m, k // g, g).astype(jnp.float32) * a_scale[..., None]).reshape(m, k)
     w_fq = (w_q.reshape(e, k // g, g, n).astype(jnp.float32) * w_scale[:, :, None, :]).reshape(e, k, n)
     ref = gmm_dense_reference(a_fq, w_fq, gs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("bk", [64, 128])
-def test_gmm_kblocked_matches_full(bk):
-    m, k, n, e = 192, 256, 128, 4
-    key = jax.random.PRNGKey(10)
-    lhs = jax.random.normal(key, (m, k), jnp.float32)
-    rhs = jax.random.normal(key, (e, k, n), jnp.float32)
-    gs = _rand_groups(key, e, m)
-    full = pallas_gmm.gmm(lhs, rhs, gs, bm=64, bn=128, interpret=INTERPRET)
-    blocked = pallas_gmm.gmm(lhs, rhs, gs, bm=64, bn=128, bk=bk, interpret=INTERPRET)
-    # k-blocked accumulation reorders the sum; tolerance covers fp noise
-    np.testing.assert_allclose(np.asarray(blocked), np.asarray(full), rtol=2e-3, atol=2e-3)
-
-
-def test_gmm_w8a8_kblocked_matches_full():
-    m, k, n, e = 128, 256, 128, 3
-    key = jax.random.PRNGKey(11)
-    aq = jax.random.randint(key, (m, k), -127, 128, jnp.int8)
-    asc = jax.random.uniform(key, (m, 1), jnp.float32, 0.001, 0.02)
-    wq = jax.random.randint(key, (e, k, n), -127, 128, jnp.int8)
-    wsc = jax.random.uniform(key, (e, 1, n), jnp.float32, 0.001, 0.02)
-    gs = _rand_groups(key, e, m)
-    full = pallas_gmm.gmm_w8a8(aq, asc, wq, wsc, gs, bm=64, bn=128,
-                               out_dtype=jnp.float32, interpret=INTERPRET)
-    blocked = pallas_gmm.gmm_w8a8(aq, asc, wq, wsc, gs, bm=64, bn=128, bk=64,
-                                  out_dtype=jnp.float32, interpret=INTERPRET)
-    # int32 accumulation is exact -> bitwise equal
-    np.testing.assert_array_equal(np.asarray(blocked), np.asarray(full))
 
 
 def test_gmm_w8a8_asym_matches_fakequant_oracle():
@@ -227,53 +164,25 @@ def test_gmm_w8a8_asym_matches_fakequant_oracle():
     w = jax.random.normal(k2, (e, k, n), jnp.float32) + 0.5   # asym-friendly
     gs = _rand_groups(k3, e, m)
 
-    from mxmoe_tpu.quant.packing import quantize_weight_kn, dequantize_weight_kn
-    from mxmoe_tpu.quant.qparams import quantize_act_per_token
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn, dequantize_weight_kn
+    from mxmoe.quant.qparams import quantize_act_per_token
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = QLinearConfig(w_bits=8, w_gsize=-1, w_sym=False, a_bits=8)
     p = quantize_weight_kn(w, cfg)
     aq, asc = quantize_act_per_token(a, 8)
-
-    got = pallas_gmm.gmm_w8a8_asym(
-        aq, asc, p.values, p.scale, p.zp, gs, bm=64, bn=128,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    w_fq = dequantize_weight_kn(p)
-    a_fq = aq.astype(jnp.float32) * asc
-    ref = gmm_dense_reference(a_fq, w_fq, gs)
+    got = gmm_ops.gmm_w8a8_grouped(aq, asc, p.values, p.scale, gs,
+                                   rhs_zp=p.zp, out_dtype=jnp.float32)
+    ref = gmm_dense_reference(aq.astype(jnp.float32) * asc,
+                              dequantize_weight_kn(p), gs)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-    # k-blocked variant identical
-    got2 = pallas_gmm.gmm_w8a8_asym(
-        aq, asc, p.values, p.scale, p.zp, gs, bm=64, bn=128, bk=64,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(got), rtol=1e-5, atol=1e-5)
-
-
-def test_gmm_fusedquant_matches_separate():
-    m, k, n, e = 128, 256, 128, 3
-    key = jax.random.PRNGKey(13)
-    a = jax.random.normal(key, (m, k), jnp.float32)
-    w = jax.random.normal(key, (e, k, n), jnp.float32)
-    gs = _rand_groups(key, e, m)
-
-    from mxmoe_tpu.quant.qparams import quantize_act_per_token, quantize_expert_weights
-    from mxmoe_tpu.quant.schemes import QLinearConfig
-
-    qp = quantize_expert_weights(w, QLinearConfig(w_bits=8, w_gsize=-1, w_sym=True, a_bits=8))
-    aq, asc = quantize_act_per_token(a, 8)
-    want = pallas_gmm.gmm_w8a8(aq, asc, qp.q, qp.scale, gs, bm=64, bn=128,
-                               out_dtype=jnp.float32, interpret=INTERPRET)
-    got = pallas_gmm.gmm_w8a8_fusedquant(a, qp.q, qp.scale, gs, bm=64, bn=128,
-                                         out_dtype=jnp.float32, interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("gsize,sym", [(64, True), (32, False)])
 def test_gmm_weight_only_packed_matches_unpacked(gsize, sym):
-    """Nibble-packed w4a16 kernel == int8-stored weight-only kernel."""
+    """Nibble-packed w4a16 launcher == int8-stored weight-only launcher."""
+    from mxmoe.bench.kernels import make_launcher
+
     m, k, n, e = 128, 256, 128, 3
     key = jax.random.PRNGKey(11)
     k1, k2, k3 = jax.random.split(key, 3)
@@ -281,176 +190,28 @@ def test_gmm_weight_only_packed_matches_unpacked(gsize, sym):
     w = jax.random.normal(k2, (e, k, n), jnp.float32)
     gs = _rand_groups(k3, e, m)
 
-    from mxmoe_tpu.quant.packing import quantize_weight_kn, pack_int4_halves
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn
+    from mxmoe.quant.schemes import QLinearConfig
 
     cfg = QLinearConfig(w_bits=4, w_gsize=gsize, w_sym=sym, a_bits=16)
     packed = quantize_weight_kn(w, cfg)
     wq = packed.values.astype(jnp.int8)
-
-    ref = pallas_gmm.gmm_weight_only(
-        a, wq, packed.scale, packed.zp, gs, gsize=gsize,
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    got = pallas_gmm.gmm_weight_only_packed(
-        a, pack_int4_halves(wq), packed.scale, packed.zp, gs, gsize=gsize,
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("bk", [128, 256])
-def test_gmm_w8a8_grouped_kblocked_matches_full(bk):
-    """k-blocked grouped w×a == full-K grouped w×a (mixtral-scale enabler)."""
-    m, k, n, e, gsize = 128, 512, 128, 3, 64
-    key = jax.random.PRNGKey(12)
-    k1, k2, k3 = jax.random.split(key, 3)
-    a = jax.random.normal(k1, (m, k), jnp.float32)
-    w = jax.random.normal(k2, (e, k, n), jnp.float32)
-    gs = _rand_groups(k3, e, m)
-
-    from mxmoe_tpu.quant.qparams import quantize_act_grouped
-    from mxmoe_tpu.quant.packing import quantize_weight_kn
-    from mxmoe_tpu.quant.schemes import QLinearConfig
-
-    aq, asc = quantize_act_grouped(a, 8, gsize)
-    packed = quantize_weight_kn(w, QLinearConfig(w_bits=8, w_gsize=gsize,
-                                                 w_sym=True, a_bits=8))
-    wq = packed.values.astype(jnp.int8)
-
-    full = pallas_gmm.gmm_w8a8_grouped(
-        aq, asc, wq, packed.scale, gs, gsize=gsize, bm=64, bn=128, bk=None,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    blocked = pallas_gmm.gmm_w8a8_grouped(
-        aq, asc, wq, packed.scale, gs, gsize=gsize, bm=64, bn=128, bk=bk,
-        out_dtype=jnp.float32, interpret=INTERPRET,
-    )
-    np.testing.assert_allclose(np.asarray(blocked), np.asarray(full),
-                               rtol=1e-5, atol=1e-5)
-    # and both match the fake-quant dense oracle
-    a_fq = aq.astype(jnp.float32).reshape(m, k // gsize, gsize) * asc[..., None]
-    w_fq = wq.astype(jnp.float32).reshape(e, k // gsize, gsize, n) * \
-        packed.scale[:, :, None, :]
-    ref = gmm_dense_reference(a_fq.reshape(m, k), w_fq.reshape(e, k, n), gs)
-    np.testing.assert_allclose(np.asarray(blocked), np.asarray(ref),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_gmm_mixed_wo_wxa_matches_bucketed():
-    """One-launch mixed weight-only + w×a == the two bucketed launches on
-    identical operands (reference Fused-mode analog; verdict #7)."""
-    from mxmoe_tpu.bench.fused_ab import build_case, bucketed_step, fused_step
-
-    c = build_case(m_total=256, k=128, n=128, e=6, interpret=INTERPRET)
-    a = bucketed_step(c)
-    b = fused_step(c)
-    np.testing.assert_allclose(
-        np.asarray(a, np.float32), np.asarray(b, np.float32),
-        rtol=2e-2, atol=2e-2,
-    )
-
-
-def test_gmm_w8a8_aligned_maskless_matches_masked():
-    """aligned=True (maskless epilogue) == masked path when every group
-    size is a bm multiple."""
-    m, k, n, e, bm = 256, 128, 256, 4, 32
-    key = jax.random.PRNGKey(21)
-    k1, k2 = jax.random.split(key)
-    aq = jax.random.randint(k1, (m, k), -127, 128, jnp.int8)
-    asc = jnp.abs(jax.random.normal(k2, (m, 1))) + 0.01
-    wq = jax.random.randint(k2, (e, k, n), -127, 128, jnp.int8)
-    wsc = jnp.abs(jax.random.normal(k1, (e, 1, n))) * 0.01 + 0.001
-    sizes = (64, 96, 0, 96)   # bm multiples incl. an empty group
-    gs = jnp.asarray(sizes, jnp.int32)
-
-    ref = pallas_gmm.gmm_w8a8(aq, asc, wq, wsc, gs, bm=bm, bn=128,
-                              static_sizes=sizes, out_dtype=jnp.float32,
-                              interpret=INTERPRET)
-    got = pallas_gmm.gmm_w8a8(aq, asc, wq, wsc, gs, bm=bm, bn=128,
-                              static_sizes=sizes, out_dtype=jnp.float32,
-                              aligned=True, interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-6)
-
-    from mxmoe_tpu.quant.packing import pack_int4_halves
-
-    q4 = jnp.clip(wq, -8, 7).astype(jnp.int8)
-    p4 = pack_int4_halves(q4)
-    ref4 = pallas_gmm.gmm_w4a8_packed(aq, asc, p4, wsc, gs, bm=bm, bn=128,
-                                      static_sizes=sizes,
-                                      out_dtype=jnp.float32,
-                                      interpret=INTERPRET)
-    got4 = pallas_gmm.gmm_w4a8_packed(aq, asc, p4, wsc, gs, bm=bm, bn=128,
-                                      static_sizes=sizes, aligned=True,
-                                      out_dtype=jnp.float32,
-                                      interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got4), np.asarray(ref4),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_gmm_w8a8_ws_matches_pipelined():
-    """Weight-stationary kernel (manual double-buffered rhs DMA) is
-    bitwise-identical to the pipelined aligned kernel, incl. an empty
-    group and single-tile / multi-tile group runs."""
-    key = jax.random.PRNGKey(11)
-    k1, k2 = jax.random.split(key)
-    bm = 16
-    sizes = (32, 16, 0, 64, 16)      # bm multiples; one empty
-    m, k, n, e = sum(sizes), 64, 256, len(sizes)
-    aq = jax.random.randint(k1, (m, k), -127, 128, jnp.int8)
-    asc = jax.random.uniform(k2, (m, 1), jnp.float32, 0.01, 0.02)
-    wq = jax.random.randint(k1, (e, k, n), -127, 128, jnp.int8)
-    wsc = jax.random.uniform(k2, (e, 1, n), jnp.float32, 0.01, 0.02)
-    ref = pallas_gmm.gmm_w8a8(
-        aq, asc, wq, wsc, jnp.asarray(sizes, jnp.int32), bm=bm, bn=128,
-        static_sizes=sizes, aligned=True, interpret=INTERPRET)
-    got = pallas_gmm.gmm_w8a8_ws(aq, asc, wq, wsc, sizes, bm=bm, bn=128,
-                                 interpret=INTERPRET)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # full-row bn default
-    got_full = pallas_gmm.gmm_w8a8_ws(aq, asc, wq, wsc, sizes, bm=bm,
-                                      interpret=INTERPRET)
-    ref_full = pallas_gmm.gmm_w8a8(
-        aq, asc, wq, wsc, jnp.asarray(sizes, jnp.int32), bm=bm, bn=n,
-        static_sizes=sizes, aligned=True, interpret=INTERPRET)
-    np.testing.assert_array_equal(np.asarray(got_full), np.asarray(ref_full))
-
-
-def test_gmm_w4a8_packed_ws_matches_unpacked():
-    from mxmoe_tpu.quant.packing import pack_int4_halves
-
-    key = jax.random.PRNGKey(12)
-    k1, k2 = jax.random.split(key)
-    bm = 16
-    sizes = (16, 48, 32)
-    m, k, n, e = sum(sizes), 64, 256, len(sizes)
-    aq = jax.random.randint(k1, (m, k), -7, 8, jnp.int8)
-    asc = jax.random.uniform(k2, (m, 1), jnp.float32, 0.01, 0.02)
-    q4 = jax.random.randint(k1, (e, k, n), -8, 8, jnp.int8)
-    wsc = jax.random.uniform(k2, (e, 1, n), jnp.float32, 0.01, 0.02)
-    ref = pallas_gmm.gmm_w8a8(
-        aq, asc, q4, wsc, jnp.asarray(sizes, jnp.int32), bm=bm, bn=128,
-        static_sizes=sizes, aligned=True, interpret=INTERPRET)
-    got = pallas_gmm.gmm_w4a8_packed_ws(
-        aq, asc, pack_int4_halves(q4), wsc, sizes, bm=bm, bn=128,
-        interpret=INTERPRET)
+    ops = {"lhs": a, "rhs_sc": packed.scale, "rhs_zp": packed.zp, "gs": gs}
+    name = cfg.scheme_name
+    ref = make_launcher(name)({**ops, "rhs": wq})
+    got = make_launcher(name + "_packed")({**ops, "rhs": pack_int4_halves(wq)})
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_gmm_mixed_packed_matches_int8_all_modes():
     """ONE-launch mixed packed/int8 GMM (ragged weight buffer, per-expert
-    nibble packing) is bitwise-identical to the all-int8 one-launch kernel
-    in every scheduling mode: traced metadata, static grid, aligned
-    maskless, and under jit with traced sizes. The round-2 storage gap
-    closer — w<=4 experts stream half the weight bytes in the SAME launch
-    (reference storage families ``cta_gemm.cuh:112-286``, fused dispatch
-    ``hz_fused.cuh:14-127``)."""
-    from mxmoe_tpu.quant.packing import build_ragged_mixed
-
+    nibble packing) is bitwise-identical to the all-int8 launch for
+    unaligned and bm-aligned row layouts, eagerly and under jit with
+    traced sizes — w<=4 experts stream half the weight
+    bytes in the SAME launch (reference storage families
+    ``cta_gemm.cuh:112-286``, fused dispatch ``hz_fused.cuh:14-127``)."""
     rng = np.random.default_rng(0)
-    e_, k_, n_ = 6, 256, 384
+    e_, k_, n_ = 6, 128, 192
     sizes = [96, 0, 128, 33, 257, 64]
     m = sum(sizes)
     pflags = np.array([1, 0, 0, 1, 1, 0], np.int32)
@@ -458,93 +219,151 @@ def test_gmm_mixed_packed_matches_int8_all_modes():
     for ei in range(e_):
         hi = 8 if pflags[ei] else 128
         wq[ei] = rng.integers(-hi, hi, size=(k_, n_)).astype(np.int8)
-    aq = rng.integers(-128, 128, size=(m, k_)).astype(np.int8)
-    asc = rng.uniform(0.5, 2, (m, 1)).astype(np.float32)
-    wsc = rng.uniform(0.5, 2, (e_, 1, n_)).astype(np.float32)
+    aq = jnp.asarray(rng.integers(-128, 128, size=(m, k_)), jnp.int8)
+    asc = jnp.asarray(rng.uniform(0.5, 2, (m, 1)), jnp.float32)
+    wsc = jnp.asarray(rng.uniform(0.5, 2, (e_, 1, n_)), jnp.float32)
     gs = jnp.asarray(sizes, jnp.int32)
 
     rhs_cat, blk_off = build_ragged_mixed(jnp.asarray(wq), pflags)
-    # ragged buffer realizes the byte budget exactly: K/2 rows per packed
-    # expert, K per int8 expert
+    # the ragged buffer realizes the byte budget exactly: K/2 rows per
+    # packed expert, K per int8 expert
     assert rhs_cat.shape[0] == sum(
         k_ // 2 if pflags[ei] else k_ for ei in range(e_))
+    pf, blk = jnp.asarray(pflags), jnp.asarray(blk_off, jnp.int32)
+    kw = dict(bm=64, bn=64, interpret=INTERPRET)
 
-    ref = pallas_gmm.gmm_w8a8(
-        jnp.asarray(aq), jnp.asarray(asc), jnp.asarray(wq), jnp.asarray(wsc),
-        gs, bm=64, bn=128, interpret=INTERPRET)
-
-    out_dyn = pallas_gmm.gmm_mixed_packed(
-        jnp.asarray(aq), jnp.asarray(asc), rhs_cat, jnp.asarray(wsc), gs,
-        jnp.asarray(pflags), bm=64, bn=128, interpret=INTERPRET)
+    ref = pallas_gmm.gmm_w8a8(aq, asc, jnp.asarray(wq), wsc, gs, **kw)
+    out_dyn = pallas_gmm.gmm_int8(aq, asc, rhs_cat, wsc, gs, pf, blk, **kw)
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(out_dyn))
-
-    out_st = pallas_gmm.gmm_mixed_packed(
-        jnp.asarray(aq), jnp.asarray(asc), rhs_cat, jnp.asarray(wsc), gs,
-        jnp.asarray(pflags), bm=64, bn=128, interpret=INTERPRET,
-        static_sizes=sizes, static_pflags=list(pflags))
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(out_st))
 
     sizes_al = [64, 0, 128, 64, 256, 64]
     m2 = sum(sizes_al)
-    aq2 = rng.integers(-128, 128, size=(m2, k_)).astype(np.int8)
-    asc2 = rng.uniform(0.5, 2, (m2, 1)).astype(np.float32)
-    ref2 = pallas_gmm.gmm_w8a8(
-        jnp.asarray(aq2), jnp.asarray(asc2), jnp.asarray(wq),
-        jnp.asarray(wsc), jnp.asarray(sizes_al, jnp.int32), bm=64, bn=128,
-        interpret=INTERPRET)
-    out_al = pallas_gmm.gmm_mixed_packed(
-        jnp.asarray(aq2), jnp.asarray(asc2), rhs_cat, jnp.asarray(wsc),
-        jnp.asarray(sizes_al, jnp.int32), jnp.asarray(pflags), bm=64, bn=128,
-        interpret=INTERPRET, static_sizes=sizes_al,
-        static_pflags=list(pflags), aligned=True)
+    aq2 = jnp.asarray(rng.integers(-128, 128, size=(m2, k_)), jnp.int8)
+    asc2 = jnp.asarray(rng.uniform(0.5, 2, (m2, 1)), jnp.float32)
+    gs2 = jnp.asarray(sizes_al, jnp.int32)
+    ref2 = pallas_gmm.gmm_w8a8(aq2, asc2, jnp.asarray(wq), wsc, gs2, **kw)
+    out_al = pallas_gmm.gmm_int8(aq2, asc2, rhs_cat, wsc, gs2, pf, blk, **kw)
     np.testing.assert_array_equal(np.asarray(ref2), np.asarray(out_al))
 
-    f = jax.jit(lambda a, s, rc, ws, g, pf: pallas_gmm.gmm_mixed_packed(
-        a, s, rc, ws, g, pf, bm=64, bn=128, interpret=INTERPRET))
-    out_j = f(jnp.asarray(aq), jnp.asarray(asc), rhs_cat, jnp.asarray(wsc),
-              gs, jnp.asarray(pflags))
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(out_j))
+    f = jax.jit(lambda a, s, rc, ws, g, p, b: pallas_gmm.gmm_int8(
+        a, s, rc, ws, g, p, b, **kw))
+    np.testing.assert_array_equal(
+        np.asarray(ref), np.asarray(f(aq, asc, rhs_cat, wsc, gs, pf, blk)))
 
 
-def test_gmm_mixed_packed_mixtral_scale_k_autoshrinks():
-    """Mixtral-scale K (14336): the unpack intermediate would blow VMEM at
-    the default tiles — the entry must auto-shrink (never hand Mosaic an
-    oversized tile: a failed compile wedges the backend) and stay exact."""
-    from mxmoe_tpu.quant.packing import build_ragged_mixed
-
+def test_gmm_int8_mixtral_scale_k():
+    """Mixtral-scale K (14336): the K loop walks 128-row weight blocks
+    inside each program, so no tile grows with K; exact vs the oracle."""
     rng = np.random.default_rng(3)
-    e_, k_, n_ = 4, 14336, 256
+    e_, k_, n_ = 4, 14336, 64
     pf = np.array([1, 0, 1, 0], np.int32)
     wq = np.zeros((e_, k_, n_), np.int8)
     for ei in range(e_):
         hi = 8 if pf[ei] else 128
         wq[ei] = rng.integers(-hi, hi, (k_, n_)).astype(np.int8)
-    cat, _ = build_ragged_mixed(jnp.asarray(wq), pf)
+    cat, blk = build_ragged_mixed(jnp.asarray(wq), pf)
     sizes = [16, 8, 16, 8]
     m = sum(sizes)
     aq = jnp.asarray(rng.integers(-128, 128, (m, k_)), jnp.int8)
-    asc = jnp.asarray(rng.uniform(0.5, 2, (m, 1)), jnp.float32)
-    wsc = jnp.asarray(rng.uniform(0.5, 2, (e_, 1, n_)), jnp.float32)
     gs = jnp.asarray(sizes, jnp.int32)
-    ref = pallas_gmm.gmm_w8a8(aq, asc, jnp.asarray(wq), wsc, gs,
-                              bm=32, bn=256, bk=2048, interpret=INTERPRET)
-    got = pallas_gmm.gmm_mixed_packed(aq, asc, cat, wsc, gs,
-                                      jnp.asarray(pf), bn=512,
-                                      interpret=INTERPRET)
+    args = (aq, jnp.ones((m, 1)), cat, jnp.ones((e_, 1, n_)), gs,
+            jnp.asarray(pf), jnp.asarray(blk, jnp.int32))
+    got = pallas_gmm.gmm_int8(*args, bm=16, out_dtype=jnp.int32,
+                              interpret=INTERPRET)
+    ref = pallas_gmm.gmm_int8_reference(*args, out_dtype=None)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------
-# FLEX mixed path: per-expert (gsize, sym) as data in one launch
+# The Triton int8 kernel vs its exact int32 oracle, over every layout
+# ---------------------------------------------------------------------------
+
+_GROUPS = {
+    # real rows per expert (E = 5)
+    "zero": (24, 0, 40, 0, 17),          # empty groups between live ones
+    "tiny": (1, 2, 1, 0, 3),             # decode-sized groups, one m-tile
+    "straddle": (13, 21, 9, 30, 7),      # every boundary inside a row tile
+}
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["layer", "stacked"])
+@pytest.mark.parametrize("groups", sorted(_GROUPS))
+@pytest.mark.parametrize("aligned", [False, True], ids=["masked", "aligned"])
+@pytest.mark.parametrize("layout", ["int8", "packed", "mixed"])
+def test_gmm_int8_matches_int32_oracle(layout, aligned, groups, stacked):
+    """Raw int32 accumulators and the scaled output of the one kernel
+    equal the XLA oracle exactly: int8-stored, all-packed and mixed ragged
+    weights; unaligned ("masked") and aligned (every group padded to bm,
+    ``MoEImpl.dispatch_align``) row layouts; zero / tiny / straddling groups; weights
+    of one layer or of a layer stack addressed through ``group_base``."""
+    e, k, n, bm, layers = 5, 64, 32, 16, 3
+    sizes = _GROUPS[groups]
+    if aligned:
+        sizes = tuple(-(-s // bm) * bm for s in sizes)
+    m = sum(sizes)
+    rng = np.random.default_rng(len(groups) + 7 * aligned)
+    pf = {"int8": [0] * e, "packed": [1] * e, "mixed": [1, 0, 0, 1, 0]}[layout]
+    cats, blks, wscs = [], [], []
+    for _ in range(layers if stacked else 1):
+        codes = np.stack([rng.integers(-8 if p else -127, 8 if p else 128,
+                                       (k, n)) for p in pf]).astype(np.int8)
+        cat, blk = build_ragged_mixed(jnp.asarray(codes), pf)
+        cats.append(np.asarray(cat))
+        blks.append(np.asarray(blk))
+        wscs.append(rng.uniform(0.01, 0.02, (e, 1, n)).astype(np.float32))
+    layer = len(cats) - 1 if stacked else 0
+    units = cats[0].shape[0] // (k // 2)
+    rhs = jnp.asarray(np.concatenate(cats))
+    wsc = jnp.asarray(np.concatenate(wscs))
+    blk = jnp.asarray(blks[layer] + layer * units, jnp.int32)
+    aq = jnp.asarray(rng.integers(-127, 128, (m, k)), jnp.int8)
+    asc = jnp.asarray(rng.uniform(0.01, 0.02, (m, 1)), jnp.float32)
+    gs = jnp.asarray(sizes, jnp.int32)
+    args = (aq, asc, rhs, wsc, gs, jnp.asarray(pf, jnp.int32), blk)
+    kw = dict(group_base=layer * e)
+    launch = dict(bm=bm, bn=16, bk=16, interpret=INTERPRET, **kw)
+
+    acc = pallas_gmm.gmm_int8(*args, out_dtype=jnp.int32, **launch)
+    want = pallas_gmm.gmm_int8_reference(*args, out_dtype=None, **kw)
+    np.testing.assert_array_equal(np.asarray(acc), np.asarray(want))
+    out = pallas_gmm.gmm_int8(*args, out_dtype=jnp.float32, **launch)
+    ref = pallas_gmm.gmm_int8_reference(*args, out_dtype=jnp.float32, **kw)
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+
+
+def test_ragged_to_dense_int8_roundtrip():
+    """The XLA unpack of the ragged buffer returns the original codes."""
+    rng = np.random.default_rng(4)
+    pf = np.array([1, 0, 1, 1, 0], np.int32)
+    codes = np.stack([rng.integers(-8 if p else -128, 8 if p else 128,
+                                   (32, 24)) for p in pf]).astype(np.int8)
+    cat, blk = build_ragged_mixed(jnp.asarray(codes), pf)
+    back = gmm_ops.ragged_to_dense_int8(cat, jnp.asarray(pf),
+                                        jnp.asarray(blk, jnp.int32), 32)
+    np.testing.assert_array_equal(np.asarray(back), codes)
+
+
+def test_offsets_overflow_flags_only_the_2_to_4_gib_band():
+    f = pallas_gmm.offsets_overflow
+    sds = jax.ShapeDtypeStruct
+    assert not f(sds((2**20, 2**10), jnp.int8))          # 1 GiB
+    assert f(sds((3 * 2**20, 2**10), jnp.int8))          # 3 GiB: wraps
+    assert not f(sds((5 * 2**20, 2**10), jnp.int8))      # 5 GiB: 64-bit
+    # offsets count elements: 3 GiB of f32 is < 2**31 elements
+    assert not f(sds((3 * 2**28,), jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# FLEX mixed path: per-expert (gsize, sym) as data, plain XLA
 # ---------------------------------------------------------------------------
 
 def _flex_fixture(seed=0, m_sizes=(16, 9, 0, 23), k=256, n=128, gsize=64,
                   schemes=None):
     """Per-expert mixed schemes incl. grouped + asym; returns operands for
     the flex kernels plus a float64 dequant oracle."""
-    from mxmoe_tpu.quant.packing import quantize_weight_kn, dequantize_weight_kn
-    from mxmoe_tpu.quant.qparams import quantize_act_rows_flex
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.packing import quantize_weight_kn, dequantize_weight_kn
+    from mxmoe.quant.qparams import quantize_act_rows_flex
+    from mxmoe.quant.schemes import QLinearConfig
 
     if schemes is None:
         schemes = [
@@ -596,48 +415,41 @@ def _flex_fixture(seed=0, m_sizes=(16, 9, 0, 23), k=256, n=128, gsize=64,
 
 
 def test_gmm_grouped_flex_zp_matches_oracle():
-    """One launch over a mix of {per-channel sym, grouped asym, grouped
-    sym, per-channel w4}: gmm_w8a8_grouped with replicated scales + the
-    in-kernel zp rowsum serves the reference fused kernel's full w×a
-    scheme domain (compose_kernel.py:47-57)."""
+    """One product over a mix of {per-channel sym, grouped asym, grouped
+    sym, per-channel w4}: replicated scales + the zero-point term serve the
+    reference fused kernel's full w×a scheme domain
+    (compose_kernel.py:47-57)."""
     c = _flex_fixture()
-    out = pallas_gmm.gmm_w8a8_grouped(
-        c["aq"], c["asc"], c["wq"], c["sc"], c["sizes"], gsize=c["gsize"],
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-        rhs_zp=c["zp"],
-    )
+    out = gmm_ops.gmm_w8a8_grouped(c["aq"], c["asc"], c["wq"], c["sc"],
+                                   c["sizes"], rhs_zp=c["zp"],
+                                   out_dtype=jnp.float32)
     np.testing.assert_allclose(np.asarray(out), c["ref"], rtol=2e-5,
                                atol=2e-5)
 
 
 def test_gmm_mixed_packed_flex_matches_grouped():
-    """The PACKED flex launch (w<=4 experts nibble-packed in the ragged
-    buffer, grouped scales + zp as data) is bitwise-identical to the
-    int8-stored grouped launch on the same codes."""
-    from mxmoe_tpu.quant.packing import build_ragged_mixed
-
+    """PACKED flex storage (w<=4 experts nibble-packed in the ragged
+    buffer) unpacks to exactly the int8-stored codes, so the grouped
+    product is bitwise-identical."""
     c = _flex_fixture()
     pf = [int(s.w_bits <= 4) for s in c["schemes"]]
     qcat, blk = build_ragged_mixed(c["wq"], pf)
-    ref = pallas_gmm.gmm_w8a8_grouped(
-        c["aq"], c["asc"], c["wq"], c["sc"], c["sizes"], gsize=c["gsize"],
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-        rhs_zp=c["zp"],
-    )
-    out = pallas_gmm.gmm_mixed_packed(
-        c["aq"], c["asc"], qcat, c["sc"], c["sizes"],
-        jnp.asarray(pf, jnp.int32), jnp.asarray(blk, jnp.int32),
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-        rhs_zp=c["zp"],
-    )
+    k = c["wq"].shape[1]
+    wq = gmm_ops.ragged_to_dense_int8(qcat, jnp.asarray(pf, jnp.int32),
+                                      jnp.asarray(blk, jnp.int32), k)
+    kw = dict(rhs_zp=c["zp"], out_dtype=jnp.float32)
+    ref = gmm_ops.gmm_w8a8_grouped(c["aq"], c["asc"], c["wq"], c["sc"],
+                                   c["sizes"], **kw)
+    out = gmm_ops.gmm_w8a8_grouped(c["aq"], c["asc"], wq, c["sc"],
+                                   c["sizes"], **kw)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_gmm_mixed_wo_wxa_flex_matches_oracle():
     """The reference's literal second hand instance — w4a16 g128 (asym
-    weight-only) + w8a8 per-channel — in ONE launch
+    weight-only) + w8a8 per-channel — in ONE product
     (hz_fused.cuh:14-445 instance _89)."""
-    from mxmoe_tpu.quant.schemes import QLinearConfig
+    from mxmoe.quant.schemes import QLinearConfig
 
     gsize = 64
     schemes = [
@@ -648,13 +460,11 @@ def test_gmm_mixed_wo_wxa_flex_matches_oracle():
     ]
     c = _flex_fixture(schemes=schemes)
     m, k = c["x"].shape
-    flags = jnp.asarray([int(s.a_bits >= 16) for s in c["schemes"]],
-                        jnp.int32)
-    out = pallas_gmm.gmm_mixed_wo_wxa(
+    row_a16 = jnp.asarray([s.a_bits >= 16 for s in
+                           (c["schemes"][i] for i in c["row_e"])])
+    out = gmm_ops.gmm_mixed_wo_wxa(
         c["x"].astype(jnp.float32), c["aq"], c["asc"], c["wq"], c["sc"],
-        flags, c["sizes"], bm=64, bn=128, out_dtype=jnp.float32,
-        interpret=INTERPRET, rhs_zp=c["zp"],
-    )
+        row_a16, c["sizes"], rhs_zp=c["zp"], out_dtype=jnp.float32)
     # oracle: a16 experts use the raw activations against dequant weights
     ref = np.array(c["ref"])
     off = 0
@@ -671,59 +481,51 @@ def test_gmm_mixed_wo_wxa_flex_matches_oracle():
 
 def test_gmm_mixed_packed_flex_straddle_matches_grouped():
     """K/2 NOT group-aligned (qwen2_moe down: K=1408, g=128 -> 704 % 128
-    != 0): the straddle variant sums the split group's int32 partials
-    exactly — still bitwise-identical to the int8-stored grouped launch."""
-    from mxmoe_tpu.quant.packing import build_ragged_mixed
-
+    != 0): the ragged unpack keeps every code in place, so the grouped
+    product is still bitwise-identical to the int8-stored one."""
     # K = 352, g = 32 -> K/2 = 176 = 5.5 groups (same 0.5-group straddle
     # geometry as qwen2_moe's 1408/128)
     c = _flex_fixture(k=352, gsize=32, m_sizes=(16, 9, 3, 23))
     pf = [int(s.w_bits <= 4) for s in c["schemes"]]
     qcat, blk = build_ragged_mixed(c["wq"], pf)
-    ref = pallas_gmm.gmm_w8a8_grouped(
-        c["aq"], c["asc"], c["wq"], c["sc"], c["sizes"], gsize=c["gsize"],
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-        rhs_zp=c["zp"],
-    )
+    kw = dict(rhs_zp=c["zp"], out_dtype=jnp.float32)
+    ref = gmm_ops.gmm_w8a8_grouped(c["aq"], c["asc"], c["wq"], c["sc"],
+                                   c["sizes"], **kw)
     np.testing.assert_allclose(np.asarray(ref), c["ref"], rtol=2e-5,
                                atol=2e-5)
-    out = pallas_gmm.gmm_mixed_packed(
-        c["aq"], c["asc"], qcat, c["sc"], c["sizes"],
-        jnp.asarray(pf, jnp.int32), jnp.asarray(blk, jnp.int32),
-        bm=64, bn=128, out_dtype=jnp.float32, interpret=INTERPRET,
-        rhs_zp=c["zp"],
-    )
+    wq = gmm_ops.ragged_to_dense_int8(qcat, jnp.asarray(pf, jnp.int32),
+                                      jnp.asarray(blk, jnp.int32), 352)
+    out = gmm_ops.gmm_w8a8_grouped(c["aq"], c["asc"], wq, c["sc"],
+                                   c["sizes"], **kw)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_layer_stacked_group_base_matches_per_layer():
-    """gmm_w8a8 over a [L*E, K, N] stack with group_base = l*E must equal
-    the per-layer-slice launch bitwise, for every layer (the decode scan
+    """gmm_w8a8 over a [L*E, K, N] stack with group_base = l*E equals the
+    per-layer-slice launch bitwise, for every layer (the decode scan
     passes stacked weights as loop constants — layers.split_expert_stack —
-    because slicing them copies: tools/tpu_scan_slice_ab.py)."""
-    L, E, K, N, M = 3, 4, 128, 256, 64
+    because slicing them into a kernel operand copies them)."""
+    L, E, K, N, M = 3, 4, 64, 64, 48
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(11), 3)
     wq = jax.random.randint(k1, (L * E, K, N), -127, 128, jnp.int8)
     wsc = jax.random.uniform(k2, (L * E, 1, N), jnp.float32, 0.01, 0.02)
     aq = jax.random.randint(k3, (M, K), -127, 128, jnp.int8)
     asc = jax.random.uniform(k1, (M, 1), jnp.float32, 0.01, 0.02)
-    gs = jnp.asarray([13, 0, 32, M - 45], jnp.int32)
+    gs = jnp.asarray([13, 0, 20, M - 33], jnp.int32)
     for l in range(L):
         ref = pallas_gmm.gmm_w8a8(
             aq, asc, wq[l * E:(l + 1) * E], wsc[l * E:(l + 1) * E], gs,
-            bm=32, bn=128, interpret=True)
+            bm=16, bn=32, interpret=INTERPRET)
         got = pallas_gmm.gmm_w8a8(
-            aq, asc, wq, wsc, gs, bm=32, bn=128, interpret=True,
-            group_base=jnp.int32(l * E), num_total_groups=L * E)
+            aq, asc, wq, wsc, gs, bm=16, bn=32, interpret=INTERPRET,
+            group_base=jnp.int32(l * E))
         np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
 
 
 def test_layer_stacked_mixed_packed_matches_per_layer():
-    """gmm_mixed_packed over the layer-global ragged buffer (stacked cat,
+    """gmm_int8 over the layer-global ragged buffer (stacked cat,
     layer-global blk offsets, stacked scales) == the per-layer launch."""
-    from mxmoe_tpu.quant.packing import build_ragged_mixed
-
-    L, E, K, N, M = 2, 4, 64, 128, 32
+    L, E, K, N, M = 2, 4, 64, 64, 32
     rng = np.random.default_rng(5)
     pf = np.asarray([1, 0, 1, 0], np.int32)
     cats, blks, scs = [], [], []
@@ -741,208 +543,68 @@ def test_layer_stacked_mixed_packed_matches_per_layer():
     gs = jnp.asarray([5, 11, 0, M - 16], jnp.int32)
     pfd = jnp.asarray(pf)
     for l in range(L):
-        ref = pallas_gmm.gmm_mixed_packed(
+        ref = pallas_gmm.gmm_int8(
             aq, asc, jnp.asarray(cats[l]), jnp.asarray(scs[l]), gs, pfd,
-            jnp.asarray(blks[l], jnp.int32), bm=16, bn=128, interpret=True)
-        got = pallas_gmm.gmm_mixed_packed(
+            jnp.asarray(blks[l], jnp.int32), bm=16, bn=32,
+            interpret=INTERPRET)
+        got = pallas_gmm.gmm_int8(
             aq, asc, cat_all, sc_all, gs, pfd,
-            jnp.asarray(blks[l], jnp.int32) + l * units, bm=16, bn=128,
-            interpret=True, group_base=jnp.int32(l * E),
-            num_total_groups=L * E)
+            jnp.asarray(blks[l], jnp.int32) + l * units, bm=16, bn=32,
+            interpret=INTERPRET, group_base=jnp.int32(l * E))
         np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
 
 
-def _qact_rows(x, bits_rows):
-    from mxmoe_tpu.quant.qparams import quantize_act_per_row_bits
-    return quantize_act_per_row_bits(x, bits_rows)
+# ---------------------------------------------------------------------------
+# The float grouped product (the same kernel, unscaled) vs its oracle
+# ---------------------------------------------------------------------------
 
-
-def test_gmm_ffn_matches_two_launch():
-    """gmm_ffn_w8a8 (one launch: gate_up -> SwiGLU -> requant -> down)
-    vs the 2-launch pipeline it fuses. The fused kernel keeps h in f32
-    (the 2-launch path rounds it to bf16 through HBM), so codes may flip
-    by one step on knife-edge values — tolerance = a few quant steps."""
-    from mxmoe_tpu.models.layers import silu_mul
-
-    e, k, nh, hout, bm = 5, 256, 256, 256, 32
-    m = 192
-    gs = jnp.array([64, 0, 32, 64, 32], jnp.int32)  # bm-aligned
-    key = jax.random.PRNGKey(7)
-    k1, k2, k3 = jax.random.split(key, 3)
-    x = jax.random.normal(k1, (m, k), jnp.float32)
-    wgu = jax.random.normal(k2, (e, k, 2 * nh), jnp.float32) * 0.05
-    wd = jax.random.normal(k3, (e, nh, hout), jnp.float32) * 0.05
-
-    def qw(w):
-        sc = jnp.max(jnp.abs(w), axis=1, keepdims=True) / 127.0
-        return jnp.round(w / sc).astype(jnp.int8), sc
-
-    wgu_q, wgu_sc = qw(wgu)
-    wd_q, wd_sc = qw(wd)
-    bits_down = jnp.array([4, 8, 8, 4, 6], jnp.int32)
-    row_expert = jnp.repeat(jnp.arange(e), gs, total_repeat_length=m)
-
-    aq, asc = _qact_rows(x, jnp.full((m,), 8.0))
-
-    # 2-launch reference
-    h1 = pallas_gmm.gmm_w8a8(aq, asc, wgu_q, wgu_sc, gs, bm=bm, bn=128,
-                             out_dtype=jnp.bfloat16, interpret=INTERPRET)
-    h = silu_mul(h1)
-    hq, hsc = _qact_rows(h, jnp.take(bits_down, row_expert).astype(jnp.float32))
-    ref = pallas_gmm.gmm_w8a8(hq, hsc, wd_q, wd_sc, gs, bm=bm, bn=128,
-                              out_dtype=jnp.float32, interpret=INTERPRET)
-
-    out = pallas_gmm.gmm_ffn_w8a8(
-        aq, asc, wgu_q, wgu_sc, wd_q, wd_sc, gs,
-        act_bits_down=bits_down, bm=bm,
-        out_dtype=jnp.float32, interpret=INTERPRET)
-    # EXACT oracle of the fused semantics: same int dots and scale
-    # algebra with h held in f32 (no bf16 HBM round-trip)
-    from mxmoe_tpu.ops.gmm import gmm_dense_reference
-    gu_f = gmm_dense_reference(aq.astype(jnp.float32) * asc,
-                               wgu_q.astype(jnp.float32) * wgu_sc, gs)
-    h_f = jax.nn.silu(gu_f[:, :nh]) * gu_f[:, nh:]
-    hq2, hsc2 = _qact_rows(h_f, jnp.take(bits_down, row_expert).astype(jnp.float32))
-    oracle = gmm_dense_reference(hq2.astype(jnp.float32) * hsc2,
-                                 wd_q.astype(jnp.float32) * wd_sc, gs)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(oracle),
-                               rtol=2e-4, atol=2e-4)
-    # vs the 2-launch path: identical up to one-code flips where the
-    # bf16 h round-trip falls on a quantization knife edge
-    d = np.abs(np.asarray(out) - np.asarray(ref))
-    assert d.mean() < 1e-2, d.mean()
-    assert np.quantile(d, 0.99) < 8e-2, np.quantile(d, 0.99)
-    assert d.max() < 0.3, d.max()
-
-
-def test_gmm_ffn_stacked_metadata():
-    """Layer-stacked operands (group_base/num_total_groups) select the
-    right layer's experts — mirrors the decode loop's globalized path."""
-    from mxmoe_tpu.models.layers import silu_mul
-
-    L, e, k, nh, hout, bm = 3, 4, 128, 128, 128, 32
-    m = 128
-    gs = jnp.array([32, 32, 0, 64], jnp.int32)
-    key = jax.random.PRNGKey(11)
-    k1, k2, k3 = jax.random.split(key, 3)
-    wgu = jax.random.normal(k2, (L * e, k, 2 * nh), jnp.float32) * 0.05
-    wd = jax.random.normal(k3, (L * e, nh, hout), jnp.float32) * 0.05
-    x = jax.random.normal(k1, (m, k), jnp.float32)
-
-    def qw(w):
-        sc = jnp.max(jnp.abs(w), axis=1, keepdims=True) / 127.0
-        return jnp.round(w / sc).astype(jnp.int8), sc
-
-    wgu_q, wgu_sc = qw(wgu)
-    wd_q, wd_sc = qw(wd)
-    aq, asc = _qact_rows(x, jnp.full((m,), 8.0))
-    bits = jnp.full((L * e,), 8, jnp.int32)
-
-    for layer in (0, 2):
-        sl = slice(layer * e, (layer + 1) * e)
-        ref = pallas_gmm.gmm_ffn_w8a8(
-            aq, asc, wgu_q[sl], wgu_sc[sl], wd_q[sl], wd_sc[sl], gs,
-            act_bits_down=bits[sl], bm=bm,
-            out_dtype=jnp.float32, interpret=INTERPRET)
-        out = pallas_gmm.gmm_ffn_w8a8(
-            aq, asc, wgu_q, wgu_sc, wd_q, wd_sc, gs,
-            act_bits_down=bits, bm=bm, out_dtype=jnp.float32,
-            interpret=INTERPRET, group_base=jnp.asarray(layer * e),
-            num_total_groups=L * e)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_gmm_ffn_mixed_packed_bitwise_vs_int8_ffn():
-    """gmm_ffn_mixed_packed on a packed w4/w8 mix is BITWISE-identical to
-    gmm_ffn_w8a8 on the equivalent int8-stored codes: the nibble dot and
-    the half-K int8 pair are exact int32 sums and both kernels keep h in
-    VMEM f32 with the same requant math."""
-    from mxmoe_tpu.quant import packing
-
-    e, k, nh, hout, bm = 5, 256, 256, 256, 32
-    m = 192
-    gs = jnp.array([64, 0, 32, 64, 32], jnp.int32)
-    pf = np.array([1, 0, 1, 0, 1], np.int64)
-    rng = np.random.default_rng(3)
-
-    def mk_codes(kk, nn):
-        c = rng.integers(-127, 128, (e, kk, nn)).astype(np.int8)
-        for ei in range(e):
-            if pf[ei]:
-                c[ei] = np.clip(c[ei], -8, 7)
-        sc = rng.uniform(0.005, 0.02, (e, 1, nn)).astype(np.float32)
-        return jnp.asarray(c), jnp.asarray(sc)
-
-    wgu_q, wgu_sc = mk_codes(k, 2 * nh)
-    wd_q, wd_sc = mk_codes(nh, hout)
-    gu_cat, gu_blk = packing.build_ragged_mixed(wgu_q, pf)
-    d_cat, d_blk = packing.build_ragged_mixed(wd_q, pf)
-    bits_down = jnp.array([4, 8, 8, 4, 6], jnp.int32)
-
-    x = jax.random.normal(jax.random.PRNGKey(5), (m, k), jnp.float32)
-    aq, asc = _qact_rows(x, jnp.full((m,), 8.0))
-
-    ref = pallas_gmm.gmm_ffn_w8a8(
-        aq, asc, wgu_q, wgu_sc, wd_q, wd_sc, gs,
-        act_bits_down=bits_down, bm=bm, out_dtype=jnp.float32,
+@pytest.mark.parametrize("stacked", [False, True], ids=["layer", "stacked"])
+@pytest.mark.parametrize("groups", sorted(_GROUPS))
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32],
+                         ids=["bf16", "f32"])
+def test_gmm_float_matches_oracle(dtype, groups, stacked):
+    """``gmm_float`` (interpret mode) equals the one-hot oracle on the same
+    operands: f32 accumulation of bf16 products, f32 operands at full
+    precision; zero / tiny / straddling groups; one layer or a layer stack
+    addressed through ``group_base``."""
+    e, k, n, layers = 5, 64, 32, 3
+    sizes = _GROUPS[groups]
+    m = sum(sizes)
+    rng = np.random.default_rng(len(groups))
+    lhs = jnp.asarray(rng.normal(size=(m, k)), dtype)
+    rhs = jnp.asarray(rng.normal(size=((layers if stacked else 1) * e, k, n)),
+                      dtype)
+    base = (layers - 1) * e if stacked else 0
+    gs = jnp.asarray(sizes, jnp.int32)
+    got = pallas_gmm.gmm_float(
+        lhs, rhs, gs, group_base=base, out_dtype=jnp.float32,
+        tiles=dict(bm=16, bn=16, bk=16, num_warps=4, num_stages=3),
         interpret=INTERPRET)
-    out = pallas_gmm.gmm_ffn_mixed_packed(
-        aq, asc, gu_cat, wgu_sc, jnp.asarray(pf, jnp.int32),
-        jnp.asarray(gu_blk, jnp.int32),
-        d_cat, wd_sc, jnp.asarray(pf, jnp.int32),
-        jnp.asarray(d_blk, jnp.int32),
-        gs, act_bits_down=bits_down, bm=bm, out_dtype=jnp.float32,
-        interpret=INTERPRET)
-    rows = int(gs.sum())
-    np.testing.assert_array_equal(np.asarray(out)[:rows],
-                                  np.asarray(ref)[:rows])
+    ref = gmm_dense_reference(lhs.astype(jnp.float32),
+                              rhs[base:base + e].astype(jnp.float32), gs)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
-def test_gmm_ffn_mixed_packed_stacked_metadata():
-    """Layer-stacked packed ragged buffers (group_base + layer-global blk
-    offsets) select the right layer's experts — the decode-loop layout."""
-    from mxmoe_tpu.quant import packing
+@pytest.mark.parametrize("backend", ["auto", "ragged_dot", "dense"])
+def test_gmm_backends_agree(backend):
+    """Every ``ops.gmm.gmm`` backend computes the same grouped product
+    ('auto' is ragged_dot here and ``gmm_float`` on the card, where
+    tests/test_gpu.py checks it)."""
+    m, k, n, e = 96, 128, 64, 6
+    rng = np.random.default_rng(5)
+    lhs = jnp.asarray(rng.normal(size=(m, k)), jnp.float32)
+    rhs = jnp.asarray(rng.normal(size=(e, k, n)), jnp.float32)
+    gs = jnp.asarray([30, 0, 1, 40, 0, 25], jnp.int32)
+    got = gmm_ops.gmm(lhs, rhs, gs, backend=backend)
+    ref = gmm_dense_reference(lhs, rhs, gs)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
 
-    L, e, k, nh, hout, bm = 3, 4, 128, 128, 128, 32
-    m = 128
-    gs = jnp.array([32, 32, 0, 64], jnp.int32)
-    pf = np.array([1, 0, 0, 1], np.int64)
-    rng = np.random.default_rng(9)
 
-    def mk_codes(kk, nn):
-        c = rng.integers(-127, 128, (L, e, kk, nn)).astype(np.int8)
-        for ei in range(e):
-            if pf[ei]:
-                c[:, ei] = np.clip(c[:, ei], -8, 7)
-        sc = rng.uniform(0.005, 0.02, (L, e, 1, nn)).astype(np.float32)
-        return c, jnp.asarray(sc)
-
-    gu_c, gu_sc = mk_codes(k, 2 * nh)
-    d_c, d_sc = mk_codes(nh, hout)
-    gu_cat, gu_blk, _ = packing.pack_ragged_stack(list(gu_c), [pf] * L)
-    d_cat, d_blk, _ = packing.pack_ragged_stack(list(d_c), [pf] * L)
-    gu_units = gu_cat.shape[1] // (k // 2)
-    d_units = d_cat.shape[1] // (nh // 2)
-    gu_flat = gu_cat.reshape(-1, 2 * nh)
-    d_flat = d_cat.reshape(-1, hout)
-    bits = jnp.full((L * e,), 8, jnp.int32)
-
-    x = jax.random.normal(jax.random.PRNGKey(2), (m, k), jnp.float32)
-    aq, asc = _qact_rows(x, jnp.full((m,), 8.0))
-    pfd = jnp.asarray(pf, jnp.int32)
-
-    for layer in (0, 2):
-        ref = pallas_gmm.gmm_ffn_mixed_packed(
-            aq, asc, gu_cat[layer], gu_sc[layer], pfd, gu_blk[layer],
-            d_cat[layer], d_sc[layer], pfd, d_blk[layer],
-            gs, act_bits_down=bits[:e], bm=bm, out_dtype=jnp.float32,
-            interpret=INTERPRET)
-        out = pallas_gmm.gmm_ffn_mixed_packed(
-            aq, asc, gu_flat, gu_sc.reshape(L * e, 1, -1), pfd,
-            gu_blk[layer] + layer * gu_units,
-            d_flat, d_sc.reshape(L * e, 1, -1), pfd,
-            d_blk[layer] + layer * d_units,
-            gs, act_bits_down=bits, bm=bm, out_dtype=jnp.float32,
-            interpret=INTERPRET, group_base=jnp.asarray(layer * e),
-            num_total_groups=L * e)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+@pytest.mark.parametrize("k,n,ok", [(40, 64, False), (64, 40, False),
+                                    (1408, 2048, True), (2048, 2816, True)])
+def test_gmm_float_supported_widths(k, n, ok):
+    """The power-of-two blocks tile K/2 and N only with a 16 divisor;
+    other widths keep ragged_dot on the card."""
+    assert pallas_gmm.float_supported(k, n) == ok

@@ -8,13 +8,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.quant.calibrate import calibrate_model
-from mxmoe_tpu.quant.schemes import QLinearConfig, QModelConfig, parse_scheme
-from mxmoe_tpu.trace.gate import trace_gate_stats, dump_gate_trace, load_gate_trace
-from mxmoe_tpu.solver import solve_model
-from mxmoe_tpu.bench.workload_gen import generate_workload_from_gate_trace
-from mxmoe_tpu.bench.harness import run_check
+from mxmoe.models import configs, model
+from mxmoe.quant.calibrate import calibrate_model
+from mxmoe.quant.schemes import QLinearConfig, QModelConfig, parse_scheme
+from mxmoe.trace.gate import trace_gate_stats, dump_gate_trace, load_gate_trace
+from mxmoe.solver import solve_model
+from mxmoe.bench.workload_gen import generate_workload_from_gate_trace
+from mxmoe.bench.harness import run_check
 
 SCHEMES = {
     "w4a4_g-1_sym": parse_scheme("w4a4_g-1_sym"),
@@ -69,7 +69,7 @@ def test_full_pipeline(tmp_path):
 
 
 def test_activation_trace():
-    from mxmoe_tpu.trace.gate import trace_activation_stats
+    from mxmoe.trace.gate import trace_activation_stats
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(4), dtype=jnp.float32)
@@ -84,7 +84,7 @@ def test_activation_trace():
 
 def test_harness_check_grouped_and_asym_schemes():
     """check mode covers grouped (g128-class) and asym int8 schemes."""
-    from mxmoe_tpu.bench.harness import run_check
+    from mxmoe.bench.harness import run_check
 
     wl = {
         "num_tokens": 128,
@@ -110,8 +110,8 @@ def test_ds2_full_pipeline():
     """trace -> calibrate -> solve on the MLA + dense-first family; hidden
     states propagate through the dense layer and MLA attention correctly
     (forward oracle: trace hidden states must match model.forward_hidden)."""
-    from mxmoe_tpu.models.configs import tiny_ds2
-    from mxmoe_tpu.solver import solve_model
+    from mxmoe.models.configs import tiny_ds2
+    from mxmoe.solver import solve_model
 
     cfg = tiny_ds2(num_experts=4, num_layers=3)
     params = model.init_params(cfg, jax.random.PRNGKey(50), dtype=jnp.float32)

@@ -9,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl, moe_block, silu_mul
-from mxmoe_tpu.ops.dispatch import route_topk, make_dispatch, gather_tokens, combine_tokens
-from mxmoe_tpu.ops.gmm import gmm_dense_reference
-from mxmoe_tpu.quant import qparams
-from mxmoe_tpu.quant.schemes import QLinearConfig
-from mxmoe_tpu.quant.packing import dequantize_weight_kn, PackedTensor
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl, moe_block, silu_mul
+from mxmoe.ops.dispatch import route_topk, make_dispatch, gather_tokens, combine_tokens
+from mxmoe.ops.gmm import gmm_dense_reference
+from mxmoe.quant import qparams
+from mxmoe.quant.schemes import QLinearConfig
+from mxmoe.quant.packing import dequantize_weight_kn, PackedTensor
 
 INTERPRET = jax.default_backend() == "cpu"
 
@@ -69,7 +69,7 @@ def test_w8a8_moe_matches_oracle():
     got = moe_block(x[None], qlp, cfg, impl)[0]
     # subtract the shared-expert contribution computed identically in both
     ref_moe = _oracle_quant_moe(x, qlp, cfg, qcfg)
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x, qlp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-3, atol=5e-3)
 
@@ -82,7 +82,7 @@ def test_w4a16_weight_only_moe_matches_oracle():
 
     got = moe_block(x[None], qlp, cfg, impl)[0]
     ref_moe = _oracle_quant_moe(x, qlp, cfg, qcfg)
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x, qlp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-3, atol=5e-3)
 
@@ -105,8 +105,8 @@ def test_full_forward_quantized_smoke():
 
 def test_mixed_real_quant_single_launch_matches_oracle():
     """Per-expert mixed w4a4/w8a8 in ONE int8 kernel launch vs fake-quant
-    oracle (TPU-native mixed execution: bitwidths as data, not code)."""
-    from mxmoe_tpu.quant.schemes import (
+    oracle (one-launch mixed execution: bitwidths as data, not code)."""
+    from mxmoe.quant.schemes import (
         QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
@@ -124,8 +124,8 @@ def test_mixed_real_quant_single_launch_matches_oracle():
     got = moe_block(x, lp, cfg, impl)[0]
 
     # oracle: dequantized weights + per-row fake-quant acts through dense ref
-    from mxmoe_tpu.ops.dispatch import route_topk, make_dispatch, gather_tokens, combine_tokens
-    from mxmoe_tpu.quant.qparams import quantize_act_per_row_bits
+    from mxmoe.ops.dispatch import route_topk, make_dispatch, gather_tokens, combine_tokens
+    from mxmoe.quant.qparams import quantize_act_per_row_bits
     x2d = x[0]
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob)
@@ -146,17 +146,16 @@ def test_mixed_real_quant_single_launch_matches_oracle():
     h = silu_mul(h)
     out = gmm_dense_reference(fq_act(h, "act_bits_down"), deq("expert_down"), disp.group_sizes)
     ref_moe = combine_tokens(out, disp, x2d.shape[0])
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x2d, lp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=5e-3, atol=5e-3)
 
 
 def test_mixed_weight_only_wxa_fused_launch_matches_oracle():
-    """Layers mixing a16 weight-only experts with w×a ones run the fused
-    gmm_mixed_wo_wxa launch (measured faster than bucketed at every M,
-    bench/fused_ab.py): a16 rows keep full act precision, w×a rows take
-    the int8 MXU path."""
-    from mxmoe_tpu.quant.schemes import (
+    """Layers mixing a16 weight-only experts with w×a ones run one
+    ops.gmm.gmm_mixed_wo_wxa product: a16 rows keep full act precision,
+    w×a rows use their dequantized int8 codes."""
+    from mxmoe.quant.schemes import (
         QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
@@ -175,9 +174,9 @@ def test_mixed_weight_only_wxa_fused_launch_matches_oracle():
     lp = {k: v[0] for k, v in qp["layers"].items()}
     got = moe_block(x, lp, cfg, impl)[0]
 
-    from mxmoe_tpu.ops.dispatch import (route_topk, make_dispatch,
-                                        gather_tokens, combine_tokens)
-    from mxmoe_tpu.quant.qparams import quantize_act_per_row_bits
+    from mxmoe.ops.dispatch import (route_topk, make_dispatch,
+                                    gather_tokens, combine_tokens)
+    from mxmoe.quant.qparams import quantize_act_per_row_bits
     x2d = x[0]
     logits = x2d @ lp["router"]
     routing = route_topk(logits, cfg.top_k, cfg.norm_topk_prob)
@@ -202,7 +201,7 @@ def test_mixed_weight_only_wxa_fused_launch_matches_oracle():
     out = gmm_dense_reference(fq_act(h, "act_bits_down"),
                               deq("expert_down"), disp.group_sizes)
     ref_moe = combine_tokens(out, disp, x2d.shape[0])
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x2d, lp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=5e-3, atol=5e-3)
@@ -239,7 +238,7 @@ def test_grouped_wxa_moe_matches_oracle():
     h = silu_mul(fq_gemm(xs, "expert_gate_up"))
     out = fq_gemm(h, "expert_down")
     ref_moe = combine_tokens(out, disp, x.shape[0])
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x, qlp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=5e-3, atol=5e-3)
@@ -247,7 +246,7 @@ def test_grouped_wxa_moe_matches_oracle():
 
 def test_w4a16_packed_weight_only_moe_matches_unpacked():
     """Packed w4a16 serving path == unpacked weight-only path."""
-    from mxmoe_tpu.quant.packing import pack_int4_halves
+    from mxmoe.quant.packing import pack_int4_halves
 
     cfg, _, lp, x = _tiny_setup(seed=13)
     qcfg = QLinearConfig(w_bits=4, w_gsize=16, w_sym=False, a_bits=16)
@@ -285,7 +284,7 @@ def test_aligned_dispatch_matches_unaligned():
 
 
 def test_make_dispatch_aligned_layout():
-    from mxmoe_tpu.ops.dispatch import make_dispatch, route_topk
+    from mxmoe.ops.dispatch import make_dispatch, route_topk
 
     key = jax.random.PRNGKey(5)
     logits = jax.random.normal(key, (40, 8))
@@ -311,7 +310,7 @@ def test_mixed_packed_storage_matches_int8_stored_and_shrinks_hbm():
     one-launch path (the kernel's packed dot and two half-K int8 dots are
     exact int32 sums — round-2 verdict missing #1; reference storage
     ``cta_gemm.cuh:112-286`` + host pack ``quantize.cuh:383-475``)."""
-    from mxmoe_tpu.quant.schemes import (
+    from mxmoe.quant.schemes import (
         QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
@@ -348,7 +347,7 @@ def test_mixed_packed_requires_wxa_only():
     """a16 weight-only experts keep int8-stored codes (the fused wo+wxa
     kernel's [E, K, N] operand) — pack_w4 must reject such mixes loudly."""
     import pytest
-    from mxmoe_tpu.quant.schemes import (
+    from mxmoe.quant.schemes import (
         QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
@@ -365,8 +364,8 @@ def test_mixed_packed_requires_wxa_only():
 
 def test_grouped_asym_wxa_moe_matches_oracle():
     """Grouped ASYM w×a end-to-end (round-3: was NotImplementedError).
-    The zp term factors out of the MXU dot as a per-k-group f32 ragged
-    dot: out = kernel(aq,q) + (as·rowsum(aq)) @ zp."""
+    Grouped scales and zero points run as the plain-XLA dequantized
+    product (ops.gmm.gmm_w8a8_grouped)."""
     cfg, _, lp, x = _tiny_setup(seed=23)
     gsz = 16
     qcfg = QLinearConfig(w_bits=4, w_gsize=gsz, w_sym=False,
@@ -394,7 +393,7 @@ def test_grouped_asym_wxa_moe_matches_oracle():
     h = silu_mul(fq_gemm(xs, "expert_gate_up"))
     out = fq_gemm(h, "expert_down")
     ref_moe = combine_tokens(out, disp, x.shape[0])
-    from mxmoe_tpu.models.layers import shared_expert_ffn
+    from mxmoe.models.layers import shared_expert_ffn
     ref = ref_moe + shared_expert_ffn(x, qlp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=5e-3, atol=5e-3)
@@ -405,7 +404,7 @@ def test_grouped_asym_wxa_moe_matches_oracle():
 # ---------------------------------------------------------------------------
 
 def _flex_qmodel(num_layers, e, schemes, shared=True):
-    from mxmoe_tpu.quant.schemes import (
+    from mxmoe.quant.schemes import (
         QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
 
     n_slots = e + (1 if shared else 0)
@@ -421,7 +420,7 @@ def test_flex_mixed_real_matches_fake_forward():
     flex one-launch path, and full-model real logits match the fake-quant
     protocol (identical act transforms by construction; weights dequant
     exactly)."""
-    from mxmoe_tpu.quant.quantizer import quantize_model_fake
+    from mxmoe.quant.quantizer import quantize_model_fake
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(41), dtype=jnp.float32)
@@ -472,7 +471,7 @@ def test_flex_wo_wxa_reference_instance_89():
     w4a16g128 (grouped asym weight-only) + w8a8 per-channel — serves
     REAL in one launch (hz_fused.cuh:14-445 instance _89) and matches the
     fake protocol."""
-    from mxmoe_tpu.quant.quantizer import quantize_model_fake
+    from mxmoe.quant.quantizer import quantize_model_fake
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(45), dtype=jnp.float32)
@@ -495,7 +494,7 @@ def test_flex_mixed_serving_decode_packed_matches_int8():
     """Flex mixes serve through DECODE: the slot Engine greedy-decodes the
     same tokens from the packed flex artifact as from the int8-stored one
     (bitwise-equal kernels -> identical sampling)."""
-    from mxmoe_tpu.serving.engine import Engine, EngineConfig
+    from mxmoe.serving.engine import Engine, EngineConfig
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(47), dtype=jnp.float32)
@@ -516,68 +515,13 @@ def test_flex_mixed_serving_decode_packed_matches_int8():
     assert run(qpp) == run(qp8)
 
 
-def test_moe_block_fused_ffn_dispatch_parity():
-    """END-TO-END fused-FFN dispatch (advisor round-4 low: only kernel-
-    level coverage existed): moe_block with MoEImpl(fused_ffn=True,
-    dispatch_align) matches the 2-launch path for uniform w8a8, mixed
-    int8-stored, and mixed PACKED artifacts — and a FLEX-DOWN mix (the
-    advisor's silent-wrong-output hole) must fall back to the flex path
-    bit-identically instead of entering the per-channel fused kernel."""
-    import dataclasses
-
-    from mxmoe_tpu.quant.schemes import (
-        QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
-
-    cfg = dataclasses.replace(
-        configs.tiny_qwen2_moe(num_experts=4, num_layers=1),
-        moe_intermediate_size=128)
-    params = model.init_params(cfg, jax.random.PRNGKey(31), dtype=jnp.float32)
-    x = jax.random.normal(jax.random.PRNGKey(32), (1, 64, cfg.hidden_size),
-                          jnp.float32)
-
-    def run(lp, quant, fused):
-        impl = MoEImpl(kind="ragged", quant=quant, interpret=INTERPRET,
-                       dispatch_align=32, fused_ffn=fused)
-        return np.asarray(moe_block(x, lp, cfg, impl)[0])
-
-    def mixed_lp(schemes, pack):
-        qmodel = QModelConfig(layers={"0": QLayerConfig(experts={
-            str(e): QExpertConfig(*([parse_scheme(schemes[e % 2])] * 3))
-            for e in range(4)})})
-        qp = qparams.quantize_model_experts_mixed(params, cfg, qmodel,
-                                                  pack_w4=pack)
-        return {k: v[0] for k, v in qp["layers"].items()}
-
-    # uniform w8a8
-    ucfg = QLinearConfig(w_bits=8, w_gsize=-1, w_sym=True, a_bits=8, a_sym=True)
-    ulp = {k: v[0] for k, v in
-           qparams.quantize_model_experts_uniform(params, ucfg)["layers"].items()}
-    np.testing.assert_allclose(run(ulp, ucfg, True), run(ulp, ucfg, False),
-                               rtol=3e-2, atol=3e-2)
-
-    # mixed w4/w8, int8-stored and packed
-    for pack in (False, True):
-        lp = mixed_lp(["w4a4_g-1_sym", "w8a8_g-1_sym"], pack)
-        np.testing.assert_allclose(run(lp, "mixed", True),
-                                   run(lp, "mixed", False),
-                                   rtol=3e-2, atol=3e-2)
-
-    # FLEX down family (grouped asym down, per-channel sym gate): the
-    # fused guard must reject -> identical execution to fused_ffn=False
-    for pack in (False, True):
-        lp = mixed_lp(["w8a8_g-1_sym", "w4a4_g16_asym"], pack)
-        assert "act_gsize_down" in lp or "act_gsize_gateup" in lp
-        np.testing.assert_array_equal(run(lp, "mixed", True),
-                                      run(lp, "mixed", False))
-
-
 def test_shared_expert_grouped_asym_real_storage():
     """Round-4 missing #5: grouped/asym shared schemes must REAL-quantize
     (int codes + [G, N] scales + zp) instead of falling back to
     fake-quantized bf16 weights, and the real forward must match the fake
     protocol. The flex forward test already runs this path end-to-end;
     here the STORAGE is pinned so a silent fallback regression fails."""
-    from mxmoe_tpu.quant.quantizer import quantize_model_fake
+    from mxmoe.quant.quantizer import quantize_model_fake
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(51), dtype=jnp.float32)
@@ -600,8 +544,8 @@ def test_shared_expert_grouped_asym_real_storage():
 def test_shared_expert_a16_weight_only_real():
     """a16 shared schemes (weight-only) serve REAL through the E=1
     weight-only launch (shared_wo marker) and match the fake protocol."""
-    from mxmoe_tpu.models.layers import shared_expert_ffn
-    from mxmoe_tpu.quant.quantizer import quantize_model_fake
+    from mxmoe.models.layers import shared_expert_ffn
+    from mxmoe.quant.quantizer import quantize_model_fake
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(52), dtype=jnp.float32)
@@ -614,7 +558,48 @@ def test_shared_expert_a16_weight_only_real():
     flp = {k: v[0] for k, v in fake["layers"].items()}
     x = jax.random.normal(jax.random.PRNGKey(53), (16, cfg.hidden_size),
                           jnp.float32)
-    ref = shared_expert_ffn(x, flp, cfg, interpret=INTERPRET)
-    got = shared_expert_ffn(x, lp, cfg, interpret=INTERPRET)
+    ref = shared_expert_ffn(x, flp, cfg)
+    got = shared_expert_ffn(x, lp, cfg)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=5e-3, atol=5e-3)
+
+
+def test_decode_stack_keeps_unsafe_family_per_layer(monkeypatch):
+    """A weight family whose flattened stack the kernel cannot address
+    (ops.pallas_gmm.offsets_overflow) stays per layer while the other
+    family rides the stack: the cached forward is bitwise-identical to the
+    all-stacked and the unstacked layouts."""
+    from mxmoe.ops import pallas_gmm
+    from mxmoe.models.layers import split_expert_stack
+    from mxmoe.quant.schemes import (
+        QExpertConfig, QLayerConfig, QModelConfig, parse_scheme)
+    from mxmoe.serving.decode import forward_cached
+    from mxmoe.serving.kv_cache import init_kv_cache
+
+    cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
+    params = model.init_params(cfg, jax.random.PRNGKey(41), dtype=jnp.float32)
+    schemes = ["w4a4_g-1_sym", "w8a8_g-1_sym"]
+    qmodel = QModelConfig(layers={str(l): QLayerConfig(experts={
+        str(e): QExpertConfig(*([parse_scheme(schemes[e % 2])] * 3))
+        for e in range(4)}) for l in range(2)})
+    qp = qparams.quantize_model_experts_mixed(params, cfg, qmodel,
+                                              pack_w4=True)
+    toks = jax.random.randint(jax.random.PRNGKey(42), (2, 5), 0,
+                              cfg.vocab_size)
+
+    def run(stack):
+        impl = MoEImpl(kind="ragged", quant="mixed", interpret=INTERPRET,
+                       stack_weights=stack)
+        cache = init_kv_cache(cfg, 2, 16, jnp.float32)
+        return np.asarray(forward_cached(qp, toks, cache, cfg, impl)[0])
+
+    ref, stacked = run(False), run(True)
+    down_cat = qp["layers"]["expert_down_qcat"].shape
+    monkeypatch.setattr(pallas_gmm, "offsets_overflow",
+                        lambda x: tuple(x.shape) == tuple(down_cat))
+    xs, stack = split_expert_stack(qp["layers"])
+    assert "expert_down_qcat" in xs and "expert_down_sc" in xs
+    assert "expert_gate_up_qcat" in stack and "expert_down_sc" not in stack
+    split = run(True)
+    np.testing.assert_array_equal(stacked, ref)
+    np.testing.assert_array_equal(split, ref)

@@ -4,14 +4,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
-from mxmoe_tpu.quant.quantizer import quantize_model_fake
-from mxmoe_tpu.quant.schemes import (
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
+from mxmoe.quant.quantizer import quantize_model_fake
+from mxmoe.quant.schemes import (
     QLinearConfig, QExpertConfig, QLayerConfig, QModelConfig,
     build_uniform_model, parse_scheme,
 )
-from mxmoe_tpu.eval.evaluator import eval_ppl_tokens
+from mxmoe.eval.evaluator import eval_ppl_tokens
 
 
 def _mixed_cfg(num_layers, num_experts, schemes=("w4a4_g-1_sym", "w8a8_g-1_sym")):
@@ -116,7 +116,7 @@ def test_rtn_had_method_improves_w3_ppl():
 
 def test_ds2_mixed_fake_quant_and_eval():
     """Mixed fake-quant on the MLA + dense-first-layer family."""
-    from mxmoe_tpu.models.configs import tiny_ds2
+    from mxmoe.models.configs import tiny_ds2
 
     cfg = tiny_ds2(num_experts=4, num_layers=3)
     params = model.init_params(cfg, jax.random.PRNGKey(20), dtype=jnp.float32)
@@ -136,7 +136,7 @@ def test_ds2_mixed_fake_quant_and_eval():
 
 def test_ds2_gptq_method():
     """GPTQ layer streaming on the MLA + dense-first family."""
-    from mxmoe_tpu.models.configs import tiny_ds2
+    from mxmoe.models.configs import tiny_ds2
 
     cfg = tiny_ds2(num_experts=4, num_layers=3)
     params = model.init_params(cfg, jax.random.PRNGKey(22), dtype=jnp.float32)
@@ -152,10 +152,10 @@ def test_ds2_dense_pseudo_expert_full_pipeline():
     """The ds2 dense first layer gets a scheme slot end-to-end: calibration
     emits a dense-0 row, the solver assigns it, and the quantizer applies it
     (round-1 verdict #8)."""
-    from mxmoe_tpu.models.configs import tiny_ds2
-    from mxmoe_tpu.quant.calibrate import calibrate_model
-    from mxmoe_tpu.trace.gate import trace_gate_stats, dump_gate_trace
-    from mxmoe_tpu.solver import solve_model
+    from mxmoe.models.configs import tiny_ds2
+    from mxmoe.quant.calibrate import calibrate_model
+    from mxmoe.trace.gate import trace_gate_stats, dump_gate_trace
+    from mxmoe.solver import solve_model
     import json as _json
 
     cfg = tiny_ds2(num_experts=4, num_layers=3)

@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.eval.evaluator import eval_ppl_tokens, eval_ppl_decode
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
-from mxmoe_tpu.quant import qparams
-from mxmoe_tpu.quant.quantizer import quantize_model_fake
-from mxmoe_tpu.quant.schemes import (QExpertConfig, QLayerConfig,
-                                     QModelConfig, parse_scheme)
+from mxmoe.eval.evaluator import eval_ppl_tokens, eval_ppl_decode
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
+from mxmoe.quant import qparams
+from mxmoe.quant.quantizer import quantize_model_fake
+from mxmoe.quant.schemes import (QExpertConfig, QLayerConfig,
+                                 QModelConfig, parse_scheme)
 
 INTERPRET = jax.default_backend() == "cpu"
 
@@ -87,8 +87,8 @@ def test_gptq_real_exec_matches_gptq_fake():
     eval (round-3: the served model carries exactly the accuracy the gptq
     rows measure — the reference never connects its GPTQ quantizer to its
     kernels). Packed storage variant matches exactly."""
-    from mxmoe_tpu.quant.quantizer import (quantize_model_experts_mixed_gptq,
-                                           quantize_model_fake)
+    from mxmoe.quant.quantizer import (quantize_model_experts_mixed_gptq,
+                                       quantize_model_fake)
 
     cfg, params, toks, qmodel = _setup(["w4a4_g-1_sym", "w8a8_g-1_sym"],
                                        seed=5)

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from mxmoe_tpu.models.layers import attention
-from mxmoe_tpu.parallel.ring_attention import make_ring_attention_fn
+from mxmoe.models.layers import attention
+from mxmoe.parallel.ring_attention import make_ring_attention_fn
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs multi-device mesh"
@@ -56,8 +56,8 @@ def test_sp_prefill_forward_matches_single_device():
     sequence-parallel prefill forward (MoEImpl(attn_backend='ring') via
     make_sp_prefill_forward) produces the same logits as the single-device
     XLA-attention forward at S spanning 4 shards."""
-    from mxmoe_tpu.models import configs, model
-    from mxmoe_tpu.parallel.sharded import make_sp_prefill_forward
+    from mxmoe.models import configs, model
+    from mxmoe.parallel.sharded import make_sp_prefill_forward
 
     p = 4
     if len(jax.devices()) < p:

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
-from mxmoe_tpu.quant.rotation import (
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
+from mxmoe.quant.rotation import (
     fuse_layer_norms, rotate_model, rotate_model_hadamard,
     online_hadamard_down, rotate_down_weights,
 )
-from mxmoe_tpu.quant.hadamard import random_hadamard_matrix
+from mxmoe.quant.hadamard import random_hadamard_matrix
 
 
 def _setup(seed=0):
@@ -71,7 +71,7 @@ def test_online_hadamard_down_equivalence():
 def test_online_had_model_forward_invariance():
     """Pre-rotated down weights + online Hadamard in the ragged path must
     preserve the model function (QuaRot R4 wiring)."""
-    from mxmoe_tpu.quant.rotation import rotate_down_weights
+    from mxmoe.quant.rotation import rotate_down_weights
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)
     params = model.init_params(cfg, jax.random.PRNGKey(21), dtype=jnp.float32)
@@ -90,9 +90,9 @@ def test_online_had_with_real_quant_path():
     """R4 online Hadamard composes with real-quantized execution: rotated
     down weights + online transform keep logits close to the plain
     quantized model (the rotation is function-preserving pre-quantization)."""
-    from mxmoe_tpu.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu.quant.rotation import rotate_down_weights
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.qparams import quantize_model_experts_uniform
+    from mxmoe.quant.rotation import rotate_down_weights
+    from mxmoe.quant.schemes import parse_scheme
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=1)
     params = model.init_params(cfg, jax.random.PRNGKey(23), dtype=jnp.float32)
@@ -146,7 +146,7 @@ def test_rotation_preserves_function_ds2_mla_dense():
 def test_host_streamed_rotation_matches_full():
     """rotate_model_hadamard_host (numpy, in-place, layer-streamed) must
     equal rotate_model_hadamard on f32 leaves, for GQA and MLA+dense."""
-    from mxmoe_tpu.quant.rotation import rotate_model_hadamard_host
+    from mxmoe.quant.rotation import rotate_model_hadamard_host
 
     for mk, seed in ((configs.tiny_qwen2_moe, 3), (configs.tiny_ds2, 4)):
         cfg = mk(num_experts=4, num_layers=3)
@@ -164,7 +164,7 @@ def test_host_streamed_rotation_matches_full():
 
 
 def test_host_streamed_rotation_keeps_storage_dtype():
-    from mxmoe_tpu.quant.rotation import rotate_model_hadamard_host
+    from mxmoe.quant.rotation import rotate_model_hadamard_host
     import ml_dtypes
 
     cfg = configs.tiny_qwen2_moe(num_experts=4, num_layers=2)

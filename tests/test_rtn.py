@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mxmoe_tpu.quant import (
+from mxmoe.quant import (
     QLinearConfig,
     quantize,
     dequantize,
@@ -106,7 +106,7 @@ def test_strategy_bits_table():
 
 
 def test_qmodel_config_json_roundtrip(tmp_path):
-    from mxmoe_tpu.quant import build_uniform_model, QModelConfig
+    from mxmoe.quant import build_uniform_model, QModelConfig
 
     cfg = build_uniform_model(parse_scheme("w8a8_g-1_sym"), num_layers=2, num_experts=3)
     cfg.lt = {"0": (0.5, 1.25), "1": (0.25, 2.0)}
@@ -149,7 +149,7 @@ def test_mse_clip_search_reduces_reconstruction_error():
 
 
 def test_mse_clip_through_scheme_grammar_and_json():
-    from mxmoe_tpu.quant.schemes import QLinearConfig, parse_scheme
+    from mxmoe.quant.schemes import QLinearConfig, parse_scheme
 
     c = parse_scheme("w4a4_g-1_sym_mse")
     assert c.w_clip == "mse" and c.w_bits == 4 and c.a_bits == 4
@@ -163,8 +163,8 @@ def test_mse_clip_in_gptq_find_params():
     grid inside GPTQ's find_params)."""
     import numpy as np
 
-    from mxmoe_tpu.quant.gptq import _find_group_params
-    from mxmoe_tpu.quant.rtn import quant_ranges
+    from mxmoe.quant.gptq import _find_group_params
+    from mxmoe.quant.rtn import quant_ranges
 
     rng = np.random.default_rng(1)
     w = rng.standard_normal((2, 8, 64)).astype(np.float32)

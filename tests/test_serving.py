@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mxmoe_tpu.models import configs, model
-from mxmoe_tpu.models.layers import MoEImpl
-from mxmoe_tpu.serving.decode import forward_cached
-from mxmoe_tpu.serving.kv_cache import init_kv_cache
-from mxmoe_tpu.serving.engine import Engine, EngineConfig
+from mxmoe.models import configs, model
+from mxmoe.models.layers import MoEImpl
+from mxmoe.serving.decode import forward_cached
+from mxmoe.serving.kv_cache import init_kv_cache
+from mxmoe.serving.engine import Engine, EngineConfig
 
 
 def _setup(seed=0):
@@ -119,7 +119,7 @@ def test_ds2_mla_decode_matches_full_forward():
     params = model.init_params(cfg, jax.random.PRNGKey(7), dtype=jnp.float32)
     full = jax.random.randint(jax.random.PRNGKey(8), (1, 10), 0, cfg.vocab_size)
 
-    from mxmoe_tpu.serving.kv_cache import init_kv_cache
+    from mxmoe.serving.kv_cache import init_kv_cache
 
     cache = init_kv_cache(cfg, batch=1, max_len=32, dtype=jnp.float32)
     logits_p, cache = forward_cached(params, full[:, :6], cache, cfg)
@@ -152,8 +152,8 @@ def test_ds2_engine_generation():
 
 def test_engine_with_quantized_model():
     """Serving engine over real-quantized (int8) expert weights."""
-    from mxmoe_tpu.quant.qparams import quantize_model_experts_uniform
-    from mxmoe_tpu.quant.schemes import parse_scheme
+    from mxmoe.quant.qparams import quantize_model_experts_uniform
+    from mxmoe.quant.schemes import parse_scheme
 
     cfg, params = _setup(seed=10)
     qc = parse_scheme("w8a8_g-1_sym")
@@ -196,7 +196,7 @@ def test_engine_long_prompt_chunked_prefill():
 
 
 def test_int8_kv_cache_decode_close_to_fp():
-    from mxmoe_tpu.serving.kv_cache import init_quant_kv_cache
+    from mxmoe.serving.kv_cache import init_quant_kv_cache
 
     cfg, params = _setup(seed=12)
     full = jax.random.randint(jax.random.PRNGKey(13), (2, 10), 0, cfg.vocab_size)
@@ -217,7 +217,7 @@ def test_int8_kv_cache_decode_close_to_fp():
 
 
 def test_int8_lm_head_generation_agrees():
-    from mxmoe_tpu.quant.qparams import quantize_lm_head
+    from mxmoe.quant.qparams import quantize_lm_head
 
     cfg, params = _setup(seed=14)
     qp = quantize_lm_head(params)
@@ -233,7 +233,7 @@ def test_int8_lm_head_generation_agrees():
 
 
 def test_int8_kv_cache_mla_ds2():
-    from mxmoe_tpu.serving.kv_cache import init_quant_kv_cache
+    from mxmoe.serving.kv_cache import init_quant_kv_cache
 
     cfg = configs.tiny_ds2(num_experts=4, num_layers=3)
     params = model.init_params(cfg, jax.random.PRNGKey(16), dtype=jnp.float32)

@@ -6,7 +6,7 @@
 # checkpoints are ~90-98 GB fp16 — this host has ~53 GB of disk; the
 # honest budget table lives in docs/REPRO.md). All stages run on the CPU
 # backend (tools/cpurun.py; 8-device virtual mesh for serve) EXCEPT
-# calibrate, which stages layer-by-layer onto the TPU when one is free
+# calibrate, which stages layer-by-layer onto the GPU when one is free
 # (MXMOE_RUNBOOK_CPU=1 forces CPU there too). Logs per-stage wall time +
 # peak RSS to out/runbook_scale/times.tsv for REPRO.md.
 #
@@ -58,24 +58,24 @@ run_model () {
 
     # lite models pass --layers everywhere: the loaders otherwise expect
     # the registry depth and KeyError on the shallow checkpoint
-    stage $M trace python tools/cpurun.py -n 1 mxmoe_tpu.trace.gate \
+    stage $M trace python tools/cpurun.py -n 1 mxmoe.trace.gate \
         --model $M --ckpt $CK --nsamples 2 --seqlen 512 --out $G \
         $LAYERS || return 1
 
-    # calibrate runs HOST-STAGED ON THE TPU by default (one layer to the
-    # chip at a time, calibrate.py stage_host; CPU execution of the
+    # calibrate runs HOST-STAGED ON THE GPU by default (one layer to the
+    # device at a time, calibrate.py stage_host; CPU execution of the
     # L x E x 3 GPTQ hot loop is ~40 min/layer = ~16 h at 24L).
-    # MXMOE_RUNBOOK_CPU=1 forces the CPU backend (e.g. TPU busy).
+    # MXMOE_RUNBOOK_CPU=1 forces the CPU backend (e.g. GPU busy).
     local CAL="python -m"
     [ -n "${MXMOE_RUNBOOK_CPU:-}" ] && CAL="python tools/cpurun.py -n 1"
-    stage $M calibrate $CAL mxmoe_tpu.quant.calibrate \
+    stage $M calibrate $CAL mxmoe.quant.calibrate \
         --model $M --ckpt $CK --method gptq-had \
         --qcfg w4a4_g-1_sym w8a8_g-1_sym \
         --nsamples 2 --seqlen 256 --save_dir $OUT/$M/calib \
         $LAYERS || return 1
 
     local QC=$OUT/$M/qconfigs/$M-w5-r0.5.json
-    stage $M solve python tools/cpurun.py -n 1 mxmoe_tpu.solver.bits_solver \
+    stage $M solve python tools/cpurun.py -n 1 mxmoe.solver.bits_solver \
         --trace $G \
         --loss w4a4_g-1_sym=$OUT/$M/calib/$M-MOE-layer_out_norm-gptq-had-w4a4_g-1_sym.json \
                w8a8_g-1_sym=$OUT/$M/calib/$M-MOE-layer_out_norm-gptq-had-w8a8_g-1_sym.json \
@@ -87,7 +87,7 @@ run_model () {
     # 24L serve doesn't already prove
     [ "$LITE" = lite ] && return 0
 
-    stage $M convert python tools/cpurun.py -n 1 mxmoe_tpu.models.convert \
+    stage $M convert python tools/cpurun.py -n 1 mxmoe.models.convert \
         --model $M --ckpt $CK --out $OUT/$M/ckpt-w5-packed \
         --qconfig $QC --pack-int4 || return 1
 
@@ -98,7 +98,7 @@ run_model () {
     # --max-new 4: the stage proves artifact -> reshard -> EP decode on
     # the 8-dev mesh; every interpret-mode kernel call costs ~0.5-1 s of
     # CPU emulation at real widths, so token count is pure wall time
-    stage $M serve python tools/cpurun.py -n 8 mxmoe_tpu.serving.generate \
+    stage $M serve python tools/cpurun.py -n 8 mxmoe.serving.generate \
         --model $M --artifact $OUT/$M/ckpt-w5-packed --mesh 8 \
         --gate-trace $G --prompt "1 2 3 4" --max-new 4 --chunk 4 --slots 8 \
         --max-len 256 --decode-attn xla || return 1
